@@ -1,0 +1,180 @@
+"""StarDist 2D U-Net for inference (counterpart of ``stardist_tpu/models/
+unet.py::StarDistNet`` and its inference form ``models/unet_chw.py::
+chw_forward``).
+
+Activations are channels-last ``(H, W, C)`` so that every 3x3 conv reads
+and writes them without a transpose. The topology mirrors the flax call
+order exactly — grid pre-pooling convs, the csbdeep U-Net backbone (max-pool,
+nearest upsample, skip concat), the feature conv, and the fused 1+R head —
+and the outputs keep the reference's contract: ``prob (H', W')`` and
+``dist (R, H', W')`` float32, channel-major.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.conv import ACTS, conv3x3_hwc, conv3x3_hwc_plain
+
+
+class ConvBlock(nn.Module):
+    """3x3 SAME conv + bias + activation; weight in the flax HWIO layout."""
+
+    def __init__(self, c_in, c_out, act="relu"):
+        super().__init__()
+        act = str(act).lower()
+        if act not in ACTS:
+            raise NotImplementedError(f"activation {act!r} has no conv kernel epilogue")
+        self.act = act
+        self.weight = nn.Parameter(torch.zeros(3, 3, c_in, c_out), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(c_out), requires_grad=False)
+
+    def forward(self, h, plain=False):
+        conv = conv3x3_hwc_plain if plain else conv3x3_hwc
+        return conv(h, self.weight, self.bias, self.act)
+
+
+def max_pool(h, pool):
+    """Max-pool (H, W, C) by (py, px); H and W are multiples of the pool."""
+    py, px = pool
+    if py == 1 and px == 1:
+        return h
+    H, W, C = h.shape
+    return h.view(H // py, py, W // px, px, C).amax(dim=(1, 3))
+
+
+def upsample(h, pool):
+    """Nearest-neighbour upsampling of (H, W, C) by (py, px)."""
+    py, px = pool
+    return h.repeat_interleave(py, dim=0).repeat_interleave(px, dim=1)
+
+
+class StarDistNet(nn.Module):
+    """2D StarDist network with a U-Net backbone (inference only).
+
+    ``dtype`` is the activation type of the convs: ``torch.bfloat16`` (the
+    CUDA kernel's type and the reference's TPU inference type) or
+    ``torch.float32`` (plain convs only: on CPU, or with ``plain=True``)."""
+
+    def __init__(self, config, dtype=torch.float32):
+        super().__init__()
+        c = config
+        if c.backbone != "unet" or tuple(c.unet_kernel_size) != (3, 3) or c.unet_batch_norm:
+            raise NotImplementedError("only the 3x3 U-Net backbone without batch norm is ported")
+        if c.n_classes is not None:
+            raise NotImplementedError("multiclass heads are not ported yet")
+        self.grid = tuple(int(g) for g in c.grid)
+        self.n_rays = int(c.n_rays)
+        self.n_depth = int(c.unet_n_depth)
+        self.n_conv = int(c.unet_n_conv_per_depth)
+        self.pool = tuple(int(p) for p in c.unet_pool)
+        self.dtype = dtype
+        act, last_act = c.unet_activation, c.unet_last_activation
+        base = int(c.unet_n_filter_base)
+
+        # grid pre-pooling (unet.py StarDistNet.__call__)
+        top, self.prepools = [], []
+        ch = int(c.n_channel_in)
+        pooled = np.ones(2, int)
+        while tuple(pooled) != self.grid:
+            p = 1 + (np.asarray(self.grid) > pooled)
+            pooled *= p
+            for _ in range(self.n_conv):
+                top.append(ConvBlock(ch, base, act))
+                ch = base
+            self.prepools.append(tuple(int(v) for v in p))
+
+        # backbone (unet.py UNetBackbone.__call__)
+        bb, skip_ch = [], []
+        for n in range(self.n_depth):
+            for _ in range(self.n_conv):
+                bb.append(ConvBlock(ch, base * 2 ** n, act))
+                ch = base * 2 ** n
+            skip_ch.append(ch)
+        for _ in range(self.n_conv - 1):
+            bb.append(ConvBlock(ch, base * 2 ** self.n_depth, act))
+            ch = base * 2 ** self.n_depth
+        bb.append(ConvBlock(ch, base * 2 ** max(0, self.n_depth - 1), act))
+        ch = base * 2 ** max(0, self.n_depth - 1)
+        for n in reversed(range(self.n_depth)):
+            ch = ch + skip_ch[n]
+            for _ in range(self.n_conv - 1):
+                bb.append(ConvBlock(ch, base * 2 ** n, act))
+                ch = base * 2 ** n
+            bb.append(ConvBlock(ch, base * 2 ** max(0, n - 1), act if n > 0 else last_act))
+            ch = base * 2 ** max(0, n - 1)
+
+        self.n_feat = int(c.net_conv_after_unet)
+        if self.n_feat > 0:
+            top.append(ConvBlock(ch, self.n_feat, act))
+            ch = self.n_feat
+        self.top = nn.ModuleList(top)
+        self.backbone = nn.ModuleList(bb)
+        self.head_prob = nn.Module()
+        self.head_prob.weight = nn.Parameter(torch.zeros(ch, 1), requires_grad=False)
+        self.head_prob.bias = nn.Parameter(torch.zeros(1), requires_grad=False)
+        self.head_dist = nn.Module()
+        self.head_dist.weight = nn.Parameter(torch.zeros(ch, self.n_rays), requires_grad=False)
+        self.head_dist.bias = nn.Parameter(torch.zeros(self.n_rays), requires_grad=False)
+
+    def conv_blocks(self):
+        return list(self.top) + list(self.backbone)
+
+    def init_weights(self, generator):
+        """Glorot-uniform kernels (flax's default) and zero biases, drawn
+        from ``generator``."""
+        for blk in self.conv_blocks():
+            k = blk.weight
+            fan_in, fan_out = 9 * k.shape[2], 9 * k.shape[3]
+            lim = math.sqrt(6.0 / (fan_in + fan_out))
+            with torch.no_grad():
+                k.copy_((torch.rand(k.shape, generator=generator) * 2 - 1) * lim)
+                blk.bias.zero_()
+        for head in (self.head_prob, self.head_dist):
+            w = head.weight
+            lim = math.sqrt(6.0 / (w.shape[0] + w.shape[1]))
+            with torch.no_grad():
+                w.copy_((torch.rand(w.shape, generator=generator) * 2 - 1) * lim)
+                head.bias.zero_()
+
+    @torch.no_grad()
+    def forward(self, x, plain=False):
+        """x (H, W, C_in) -> prob (H', W') f32, dist (R, H', W') f32.
+
+        ``plain=True`` runs every conv through its plain PyTorch version
+        (the reference the kernel path is checked against)."""
+        h = x.to(self.dtype)
+        top = iter(self.top)
+        for p in self.prepools:
+            for _ in range(self.n_conv):
+                h = next(top)(h, plain)
+            h = max_pool(h, p)
+
+        bb = iter(self.backbone)
+        skips = []
+        for _ in range(self.n_depth):
+            for _ in range(self.n_conv):
+                h = next(bb)(h, plain)
+            skips.append(h)
+            h = max_pool(h, self.pool)
+        for _ in range(self.n_conv):
+            h = next(bb)(h, plain)
+        for n in reversed(range(self.n_depth)):
+            h = torch.cat([upsample(h, self.pool), skips[n]], dim=-1)
+            for _ in range(self.n_conv):
+                h = next(bb)(h, plain)
+        feat = next(top)(h, plain) if self.n_feat > 0 else h
+
+        # fused 1+R head as one f32 channel contraction; the weights are
+        # rounded to the activation type first, as the reference does
+        Hs, Ws, C = feat.shape
+        k = torch.cat([self.head_prob.weight, self.head_dist.weight], dim=1)
+        k = k.to(feat.dtype).float()                                   # (C, 1+R)
+        b = torch.cat([self.head_prob.bias, self.head_dist.bias]).float()
+        y = torch.matmul(k.t(), feat.reshape(-1, C).float().t()) + b[:, None]
+        prob = torch.sigmoid(y[0]).view(Hs, Ws)
+        dist = y[1:].view(self.n_rays, Hs, Ws)
+        return prob, dist

@@ -1,0 +1,137 @@
+"""Reading the reference's checkpoints without flax or msgpack.
+
+``stardist_tpu`` saves its parameters with ``flax.serialization.to_bytes``:
+a msgpack map ``{"params": {...}}`` (the file starts with
+``\\x81\\xa6params``) whose array leaves are msgpack ext type 1, each holding
+a nested msgpack ``(shape, dtype name, raw buffer)``. :func:`msgpack_loads`
+decodes the subset of msgpack that flax emits; :func:`params_from_flax`
+maps the flax parameter tree onto :class:`.unet.StarDistNet`'s state dict.
+"""
+from __future__ import annotations
+
+import struct
+
+import numpy as np
+import torch
+
+_EXT_NDARRAY = 1
+_EXT_NPSCALAR = 3
+
+
+class _Reader:
+    def __init__(self, data):
+        self.data = memoryview(data)
+        self.pos = 0
+
+    def take(self, n):
+        if self.pos + n > len(self.data):
+            raise ValueError("truncated msgpack data")
+        out = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return bytes(out)
+
+    def uint(self, n):
+        return int.from_bytes(self.take(n), "big")
+
+    def sint(self, n):
+        return int.from_bytes(self.take(n), "big", signed=True)
+
+    def obj(self):
+        t = self.take(1)[0]
+        if t <= 0x7F:
+            return t
+        if 0x80 <= t <= 0x8F:
+            return self._map(t & 0x0F)
+        if 0x90 <= t <= 0x9F:
+            return [self.obj() for _ in range(t & 0x0F)]
+        if 0xA0 <= t <= 0xBF:
+            return self.take(t & 0x1F).decode()
+        if t >= 0xE0:
+            return t - 0x100
+        simple = {0xC0: None, 0xC2: False, 0xC3: True}
+        if t in simple:
+            return simple[t]
+        if t in (0xC4, 0xC5, 0xC6):                     # bin 8/16/32
+            return self.take(self.uint(1 << (t - 0xC4)))
+        if t in (0xC7, 0xC8, 0xC9):                     # ext 8/16/32
+            n = self.uint(1 << (t - 0xC7))
+            return self._ext(self.sint(1), self.take(n))
+        if t == 0xCA:
+            return struct.unpack(">f", self.take(4))[0]
+        if t == 0xCB:
+            return struct.unpack(">d", self.take(8))[0]
+        if 0xCC <= t <= 0xCF:                           # uint 8..64
+            return self.uint(1 << (t - 0xCC))
+        if 0xD0 <= t <= 0xD3:                           # int 8..64
+            return self.sint(1 << (t - 0xD0))
+        if 0xD4 <= t <= 0xD8:                           # fixext 1..16
+            code = self.sint(1)
+            return self._ext(code, self.take(1 << (t - 0xD4)))
+        if t in (0xD9, 0xDA, 0xDB):                     # str 8/16/32
+            return self.take(self.uint(1 << (t - 0xD9))).decode()
+        if t in (0xDC, 0xDD):                           # array 16/32
+            return [self.obj() for _ in range(self.uint(2 if t == 0xDC else 4))]
+        if t in (0xDE, 0xDF):                           # map 16/32
+            return self._map(self.uint(2 if t == 0xDE else 4))
+        raise ValueError(f"unsupported msgpack type byte 0x{t:02x}")
+
+    def _map(self, n):
+        out = {}
+        for _ in range(n):
+            k = self.obj()
+            out[k] = self.obj()
+        return out
+
+    def _ext(self, code, payload):
+        if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
+            raise ValueError(f"unsupported msgpack ext type {code}")
+        shape, dtype, buf = msgpack_loads(payload)
+        if isinstance(dtype, bytes):
+            dtype = dtype.decode()
+        arr = np.frombuffer(buf, dtype=np.dtype(dtype)).reshape(shape)
+        return arr[()] if code == _EXT_NPSCALAR else arr
+
+
+def msgpack_loads(data):
+    """Decode one msgpack object (the subset flax writes)."""
+    r = _Reader(data)
+    out = r.obj()
+    if r.pos != len(r.data):
+        raise ValueError("trailing bytes after msgpack object")
+    return out
+
+
+def load_flax_checkpoint(path):
+    """The parameter tree of a flax msgpack checkpoint (nested dicts of
+    numpy arrays)."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    tree = msgpack_loads(raw)
+    if not isinstance(tree, dict) or "params" not in tree:
+        raise ValueError(f"{path}: not a flax checkpoint with a 'params' entry")
+    return tree["params"]
+
+
+def params_from_flax(net, params):
+    """State dict of ``net`` (:class:`.unet.StarDistNet`) from a flax
+    parameter tree (numpy or array-like leaves).
+
+    Module names follow the flax call order: top-level ``ConvBlock_i`` are
+    the grid pre-pooling convs then the feature conv; ``UNetBackbone_0/
+    ConvBlock_j`` the backbone; ``head_prob`` / ``head_dist`` the 1x1 heads.
+    Conv kernels stay HWIO (3, 3, C, Cout)."""
+    def conv(p):
+        return (torch.from_numpy(np.array(p["Conv_0"]["kernel"], np.float32)),
+                torch.from_numpy(np.array(p["Conv_0"]["bias"], np.float32)))
+
+    sd = {}
+    for i in range(len(net.top)):
+        sd[f"top.{i}.weight"], sd[f"top.{i}.bias"] = conv(params[f"ConvBlock_{i}"])
+    bb = params["UNetBackbone_0"]
+    for j in range(len(net.backbone)):
+        sd[f"backbone.{j}.weight"], sd[f"backbone.{j}.bias"] = conv(bb[f"ConvBlock_{j}"])
+    for head in ("head_prob", "head_dist"):
+        k = np.array(params[head]["kernel"], np.float32)
+        sd[f"{head}.weight"] = torch.from_numpy(k.reshape(k.shape[-2:]).copy())
+        sd[f"{head}.bias"] = torch.from_numpy(np.array(params[head]["bias"], np.float32))
+    return sd

@@ -1,0 +1,61 @@
+"""Non-maximum suppression — API layer (counterpart of ``stardist_tpu/nms.py``).
+
+Sorting and marshalling happen here; the overlap tests and the greedy
+suppression run in :mod:`stardist_torch.ops.nms` on the device the
+candidates live on. Inputs may be numpy arrays or torch tensors; the outputs
+are of the kind ``dist`` was given as.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.nms import nms_polygons
+
+
+def _as_tensor(x, device=None):
+    return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x)).to(device)
+
+
+def descending_order(prob):
+    """The candidate order contract: descending prob, ties in descending
+    index — ``np.argsort(prob, kind="stable")[::-1]``."""
+    return torch.flip(torch.sort(prob, stable=True).indices, dims=(0,))
+
+
+def non_maximum_suppression_sparse(dist, prob, points, b=2, nms_thresh=0.5,
+                                   verbose=False, stats=None):
+    """NMS from sparse candidate lists.
+
+    Returns (points, prob, dist, inds_original) of the survivors, in
+    descending-prob order."""
+    as_numpy = not isinstance(dist, torch.Tensor)
+    dist = _as_tensor(dist)
+    prob = _as_tensor(prob, dist.device)
+    points = _as_tensor(points, dist.device)
+    assert dist.dim() == 2 and prob.dim() == 1 and points.dim() == 2 \
+        and points.shape[-1] == 2 and len(prob) == len(dist) == len(points)
+
+    order = descending_order(prob)
+    probi, disti, pointsi = prob[order], dist[order], points[order]
+    keep = non_maximum_suppression_inds(disti, pointsi, scores=probi,
+                                        thresh=nms_thresh, stats=stats)
+    if verbose:
+        print("keeping %s/%s polygons" % (int(keep.sum()), len(keep)))
+    out = pointsi[keep], probi[keep], disti[keep], order[keep]
+    if as_numpy:
+        out = tuple(t.cpu().numpy() for t in out)
+    return out
+
+
+def non_maximum_suppression_inds(dist, points, scores, thresh=0.5, stats=None):
+    """Greedy NMS over score-sorted polygons: P1 suppresses P2 if
+    overlap(P1, P2) = A_inter / min(A1, A2) > thresh. Returns bool survivors
+    (a tensor for tensor input, else a numpy array)."""
+    as_numpy = not isinstance(dist, torch.Tensor)
+    dist = _as_tensor(dist)
+    points = _as_tensor(points, dist.device)
+    assert dist.dim() == 2 and points.dim() == 2 and points.shape[0] == dist.shape[0]
+    keep = nms_polygons(dist.to(torch.float32), points.to(torch.float32),
+                        thresh=float(thresh), stats=stats)
+    return keep.cpu().numpy() if as_numpy else keep

@@ -1,0 +1,125 @@
+"""Sampled overlap fraction of star-polygon pairs (counterpart of
+``stardist_tpu/ops/pair_overlap.py::pair_frac``).
+
+For a flat list of P pairs, the fraction of an S x S midpoint grid over the
+pair's bbox intersection (``plo``, ``ext``) that lies inside both polygons.
+On CUDA tensors it runs in ``csrc/pair_overlap.cu`` (one warp per pair); on
+CPU tensors in :func:`pair_frac_plain`, which follows the TPU kernel's
+``_inside_body`` step for step (the cross-product wedge rule), so that the
+two agree bit for bit.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .cuda_build import CudaKernel, stream_ptr
+
+KERNEL = CudaKernel(
+    "pair_overlap.cu", "pair_frac_f32",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    extra_flags=("-fmad=false",))
+
+_PLAIN_CHUNK = 4096  # pairs per step of the plain version (bounds its memory)
+
+
+def trig_table(R, device=None):
+    """(4, R) f32 [sin phi_k, cos phi_k, sin phi_k+1, cos phi_k+1]: numpy f64
+    trig cast to f32, the constants the TPU kernel bakes in."""
+    dphi = 2 * np.pi / R
+    angles = np.arange(R) * dphi
+    t = np.stack([np.sin(angles), np.cos(angles),
+                  np.sin(angles + dphi), np.cos(angles + dphi)]).astype(np.float32)
+    return torch.from_numpy(t).to(device)
+
+
+def _sample_grid(S, device):
+    i = torch.arange(S * S, device=device)
+    gr = ((i // S).to(torch.float32) + 0.5) / float(S)
+    gc = ((i % S).to(torch.float32) + 0.5) / float(S)
+    return gr, gc
+
+
+def _inside_plain(d, p_r, p_c, qr, qc, trig):
+    """Inside test of samples (qr, qc) (P, NS) against polygons d (P, R)
+    centred at (p_r, p_c) (P, 1) — ``_inside_body`` of the TPU kernel."""
+    R = d.shape[-1]
+    s0, c0, s1, c1 = (t.tolist() for t in trig.cpu())
+    ur = qr - p_r
+    uc = qc - p_c
+
+    def cr(k):
+        return ur * c0[k % R] - uc * s0[k % R]
+
+    cr0 = cr(0)
+    prev = cr0
+    v0r = torch.zeros_like(ur)
+    v0c = torch.zeros_like(ur)
+    v1r = torch.zeros_like(ur)
+    v1c = torch.zeros_like(ur)
+    for k in range(R):
+        nxt = cr0 if k == R - 1 else cr(k + 1)
+        w = ((prev >= 0) & (nxt < 0)).to(d.dtype)
+        prev = nxt
+        a = d[:, k:k + 1]
+        b = d[:, (k + 1) % R:(k + 1) % R + 1]
+        v0r = v0r + w * (a * s0[k])
+        v0c = v0c + w * (a * c0[k])
+        v1r = v1r + w * (b * s1[k])
+        v1c = v1c + w * (b * c1[k])
+    er = v1r - v0r
+    ec = v1c - v0c
+    cross_p = er * (uc - v0c) - ec * (ur - v0r)
+    cross_c = ec * v0r - er * v0c
+    return cross_p * cross_c >= 0
+
+
+def pair_frac_plain(d_r, p_r, d_c, p_c, plo, ext, S=16):
+    """Plain PyTorch version of :func:`pair_frac` (any device)."""
+    P, R = d_r.shape
+    trig = trig_table(R)
+    gr, gc = _sample_grid(S, d_r.device)
+    out = torch.empty(P, dtype=torch.float32, device=d_r.device)
+    for i0 in range(0, P, _PLAIN_CHUNK):
+        sl = slice(i0, i0 + _PLAIN_CHUNK)
+        qr = plo[sl, 0:1] + gr[None] * ext[sl, 0:1]
+        qc = plo[sl, 1:2] + gc[None] * ext[sl, 1:2]
+        in_r = _inside_plain(d_r[sl], p_r[sl, 0:1], p_r[sl, 1:2], qr, qc, trig)
+        in_c = _inside_plain(d_c[sl], p_c[sl, 0:1], p_c[sl, 1:2], qr, qc, trig)
+        both = (in_r & in_c).to(torch.float32)
+        out[sl] = both.sum(dim=1) / float(S * S)
+    return out
+
+
+def pair_frac_cuda(d_r, p_r, d_c, p_c, plo, ext, S=16):
+    """Launch ``csrc/pair_overlap.cu`` on CUDA f32 tensors."""
+    if S not in (8, 16):
+        raise ValueError(f"S must be 8 or 16, got {S}")
+    P, R = d_r.shape
+    args = [t.to(torch.float32).contiguous() for t in (d_r, p_r, d_c, p_c, plo, ext)]
+    for t, cols in zip(args, (R, 2, R, 2, 2, 2)):
+        if not t.is_cuda or t.shape != (P, cols):
+            raise ValueError(f"pair_frac_cuda: bad input {tuple(t.shape)} on {t.device}")
+    out = torch.empty(P, dtype=torch.float32, device=d_r.device)
+    if P == 0:
+        return out
+    trig = trig_table(R, d_r.device)
+    KERNEL.launch(*(ctypes.c_void_p(t.data_ptr()) for t in args),
+                  ctypes.c_void_p(trig.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+                  P, R, S, stream_ptr(d_r.device))
+    return out
+
+
+def pair_frac(d_r, p_r, d_c, p_c, plo, ext, S=16):
+    """S x S midpoint-grid overlap fraction for a flat pair list.
+
+    d_r, d_c (P, R) dists of the two polygons, p_r, p_c (P, 2) centres,
+    plo, ext (P, 2) corner and extent of the bbox intersection; S in {8, 16}.
+    Returns (P,) float32."""
+    if d_r.is_cuda:
+        return pair_frac_cuda(d_r, p_r, d_c, p_c, plo, ext, S)
+    if d_r.device.type != "cpu":
+        raise RuntimeError(f"no pair kernel for device {d_r.device}")
+    return pair_frac_plain(d_r, p_r, d_c, p_c, plo, ext, S)

@@ -1,0 +1,113 @@
+"""stardist_torch's CUDA kernels against their plain PyTorch versions, on the
+card. Every test here needs a CUDA device and skips without one.
+
+This file imports no JAX (the card's machine has none); run it there with
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from stardist_torch.matching import matching
+from stardist_torch.models import StarDist2D
+from stardist_torch.ops import conv as tconv
+from stardist_torch.ops import pair_overlap as tpo
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    """The card; skips the test where there is none (decided at run time)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False    # the plain conv in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+# the full-width model's (C_in, C_out) pairs, ragged sizes, and the
+# C_in = 1 first layer
+CONV_SHAPES = [(1, 32, 64, 256), (8, 32, 64, 256), (32, 32, 64, 256), (32, 64, 32, 128),
+               (64, 128, 32, 128), (128, 256, 16, 64), (256, 128, 16, 64),
+               (64, 32, 37, 45), (16, 16, 33, 129), (32, 16, 1, 3)]
+
+
+@pytest.mark.parametrize("C,Cout,H,W", CONV_SHAPES)
+@pytest.mark.parametrize("act", ["relu", "elu", "linear"])
+def test_conv_kernel_matches_plain(cuda_device, C, Cout, H, W, act):
+    rng = np.random.RandomState(C * Cout + H)
+    x = torch.from_numpy(rng.randn(H, W, C).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    w = torch.from_numpy((rng.randn(3, 3, C, Cout) * 0.1).astype(np.float32)).to(cuda_device)
+    b = torch.from_numpy(rng.randn(Cout).astype(np.float32)).to(cuda_device)
+    n0 = tconv.KERNEL.launches
+    y = tconv.conv3x3_hwc(x, w, b, act)
+    torch.cuda.synchronize()
+    assert tconv.KERNEL.launches == n0 + 1
+    ref = tconv.conv3x3_hwc_plain(x, w, b, act)
+    assert y.dtype == torch.bfloat16 and y.shape == ref.shape
+    # bf16 outputs of f32 sums taken in another order
+    scale = max(1.0, ref.float().abs().max().item())
+    assert (y.float() - ref.float()).abs().max().item() / scale < 1e-2
+
+
+def test_conv_kernel_rejects_float32(cuda_device):
+    x = torch.zeros(8, 8, 8, device=cuda_device)
+    with pytest.raises(TypeError):
+        tconv.conv3x3_hwc(x, torch.zeros(3, 3, 8, 8, device=cuda_device))
+
+
+def _pairs(P, R, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d_r = torch.rand(P, R, device=dev, generator=g) * 8 + 4
+    d_c = torch.rand(P, R, device=dev, generator=g) * 8 + 4
+    p_r = torch.rand(P, 2, device=dev, generator=g) * 10
+    p_c = p_r + torch.randn(P, 2, device=dev, generator=g) * 5
+    plo = torch.maximum(p_r, p_c) - 6
+    ext = torch.rand(P, 2, device=dev, generator=g) * 8 + 0.5
+    p_r[:4] = plo[:4] + ext[:4] * (0.5 / 8)     # samples at a polygon's exact centre
+    return d_r, p_r, d_c, p_c, plo, ext
+
+
+@pytest.mark.parametrize("S", [8, 16])
+@pytest.mark.parametrize("R", [32, 16, 64])
+def test_pair_kernel_matches_plain(cuda_device, S, R):
+    args = _pairs(20000, R, cuda_device, S + R)
+    n0 = tpo.KERNEL.launches
+    got = tpo.pair_frac(*args, S=S)
+    torch.cuda.synchronize()
+    assert tpo.KERNEL.launches == n0 + 1
+    ref = tpo.pair_frac_plain(*args, S=S)
+    assert torch.equal(got, ref)    # counts of 0/1 samples: bit for bit
+
+
+def _nuclei(shape, n, seed):
+    """Seeded non-overlapping discs, blurred, with noise (+ their labels)."""
+    from scipy.ndimage import gaussian_filter
+    rng = np.random.RandomState(seed)
+    lbl = np.zeros(shape, np.int32)
+    yy, xx = np.mgrid[:shape[0], :shape[1]]
+    for k in range(1, n + 1):
+        r = rng.uniform(7, 13)
+        cy, cx = rng.uniform(r, shape[0] - r), rng.uniform(r, shape[1] - r)
+        mask = (yy - cy) ** 2 + (xx - cx) ** 2 < r ** 2
+        if not (lbl[mask] > 0).any():
+            lbl[mask] = k
+    img = gaussian_filter((lbl > 0).astype(np.float32), 1.5)
+    img += 0.05 * rng.normal(size=shape).astype(np.float32)
+    return img.astype(np.float32), lbl
+
+
+def test_predict_instances_on_card_agrees_with_cpu(cuda_device):
+    img, lbl = _nuclei((256, 320), 40, 0)
+    gm = StarDist2D(None, "2D_demo", "models/examples", device=cuda_device)
+    n_conv, n_pair = tconv.KERNEL.launches, tpo.KERNEL.launches
+    lab, res = gm.predict_instances(img)
+    assert tconv.KERNEL.launches - n_conv == len(gm.net.conv_blocks())
+    assert tpo.KERNEL.launches > n_pair
+    cm = StarDist2D(None, "2D_demo", "models/examples", device="cpu")
+    lab_cpu, _ = cm.predict_instances(img)
+    # bf16 convs on the card can flip borderline candidates
+    assert matching(lab_cpu, lab, thresh=0.5).accuracy >= 0.95
+    assert matching(lbl, lab, thresh=0.5).accuracy >= 0.8
