@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Phases (each prints one line; any failed check exits non-zero):
-  (a) the card's name and power limit; build both CUDA kernels from
-      stardist_torch/csrc and time the build;
+  (a) the card's name and power limit; build the three CUDA kernels from
+      stardist_torch/csrc (one nvcc each, all at once) and time the builds;
   (b) conv kernel vs its plain version at every layer shape of the
       full-width StarDist 2D forward (Config2D() defaults) on a 4096^2
       image, with times;
@@ -16,6 +16,16 @@ Phases (each prints one line; any failed check exits non-zero):
       synthetic nuclei field of 2048^2 on the card: stage times, counts,
       AP@0.5 (StarDist's matching accuracy) against the field's ground truth,
       launch counts of both kernels; then 1024^2 on the card against the
+      same call on the CPU;
+  (f) conv3d kernel vs its plain version at every layer shape of the
+      full-width StarDist 3D forward (Config3D(grid=(1, 2, 2)), 96 rays,
+      depth 2, 32 filters) on a 64x512x512 volume, with times;
+  (g) that full-width 3D forward with seeded random weights, kernel path
+      vs plain path;
+  (h) StarDist3D(None, "3D_demo", "models/examples").predict_instances on
+      the benchmark's synthetic 3D nuclei field, 64x256x256, on the card:
+      stage times, counts, AP@0.1 against the field's ground truth, the
+      conv3d launch count; then a 32x96x96 crop on the card against the
       same call on the CPU.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -26,6 +36,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -36,6 +47,9 @@ FWD_SIZE = 4096      # full-width forward input, (b) and (d)
 E2E_SIZE = 2048      # predict_instances field on the card, (e)
 CMP_SIZE = 1024      # card vs CPU comparison field, (e)
 N_PAIRS = 100_000    # (c)
+FWD3D_SHAPE = (64, 512, 512)   # full-width 3D forward input, (f) and (g)
+E2E3D_SHAPE = (64, 256, 256)   # 3D predict_instances field on the card, (h)
+CMP3D_SHAPE = (32, 96, 96)     # card vs CPU comparison crop, (h)
 
 
 def synthetic_nuclei(shape, seed, r_range=(7, 14), density=6e-4):
@@ -65,6 +79,33 @@ def synthetic_nuclei(shape, seed, r_range=(7, 14), density=6e-4):
     return img.astype(np.float32), lbl
 
 
+def synthetic_nuclei_3d(shape, seed, r_range=(4, 7), density=2.5e-4):
+    """The benchmark's synthetic 3D nuclei field (bench.py::_synthetic_nuclei_3d)."""
+    from scipy.ndimage import gaussian_filter
+    rng = np.random.RandomState(seed)
+    lbl = np.zeros(shape, np.int32)
+    n = int(density * np.prod(shape))
+    k = 0
+    zz, yy, xx = np.mgrid[:24, :24, :24]
+    for _ in range(n):
+        r = rng.uniform(*r_range)
+        c = [rng.uniform(r, s - r) for s in shape]
+        z0, y0, x0 = (int(v) - 12 for v in c)
+        if min(z0, y0, x0) < 0 or z0 + 24 > shape[0] or y0 + 24 > shape[1] or x0 + 24 > shape[2]:
+            continue
+        mask = ((zz - (c[0] - z0)) ** 2 + (yy - (c[1] - y0)) ** 2
+                + (xx - (c[2] - x0)) ** 2) < r ** 2
+        region = lbl[z0:z0 + 24, y0:y0 + 24, x0:x0 + 24]
+        if (region[mask] > 0).any():
+            continue
+        k += 1
+        region[mask] = k
+    img = (lbl > 0).astype(np.float32)
+    img = gaussian_filter(img, 1.0)
+    img += 0.05 * rng.normal(size=shape).astype(np.float32)
+    return img.astype(np.float32), lbl
+
+
 def cuda_ms(fn, warmup=1, iters=3):
     """Mean milliseconds of fn() by CUDA events, after warm-up runs."""
     for _ in range(warmup):
@@ -85,40 +126,50 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
-def phase_b(net, dev, conv):
-    """Conv kernel vs plain at the full-width forward's layer shapes."""
+def conv_layers_vs_plain(net, x, dev, kernel_fn, plain_fn):
+    """Kernel vs plain at every conv layer shape of ``net``'s forward on x
+    (shapes found with forward hooks): checks each, times each. Returns
+    (max abs err, forward convs ms kernel, ms plain, per-shape strings)."""
     shapes = {}
 
     def hook(mod, args, out):
-        h = args[0]
-        key = (tuple(h.shape), mod.weight.shape[-1], mod.act)
+        key = (tuple(args[0].shape), mod.weight.shape[-1], mod.act)
         shapes.setdefault(key, [mod, 0])[1] += 1
 
     hooks = [blk.register_forward_hook(hook) for blk in net.conv_blocks()]
-    x = torch.rand(FWD_SIZE, FWD_SIZE, 1, device=dev)
     net(x)
     for h in hooks:
         h.remove()
     torch.cuda.synchronize()
     g = torch.Generator(device=dev).manual_seed(1)
     err, ms, plain_ms, rows = 0.0, 0.0, 0.0, []
-    for ((H, W, C), Cout, act), (mod, count) in shapes.items():
-        xs = torch.rand(H, W, C, device=dev, generator=g).to(torch.bfloat16)
-        y = conv.conv3x3_hwc(xs, mod.weight, mod.bias, act)
-        ref = conv.conv3x3_hwc_plain(xs, mod.weight, mod.bias, act)
+    for (shape, Cout, act), (mod, count) in shapes.items():
+        xs = torch.rand(*shape, device=dev, generator=g).to(torch.bfloat16)
+        y = kernel_fn(xs, mod.weight, mod.bias, act)
+        ref = plain_fn(xs, mod.weight, mod.bias, act)
         torch.cuda.synchronize()
         scale = max(1.0, ref.float().abs().max().item())
         e = (y.float() - ref.float()).abs().max().item()
         check(e / scale < CONV_TOL,
-              f"conv kernel disagrees at {(H, W, C, Cout)}: {e} (scale {scale})")
-        t_k = cuda_ms(lambda: conv.conv3x3_hwc(xs, mod.weight, mod.bias, act))
-        t_p = cuda_ms(lambda: conv.conv3x3_hwc_plain(xs, mod.weight, mod.bias, act))
+              f"conv kernel disagrees at {shape}->{Cout}: {e} (scale {scale})")
+        del y, ref
+        t_k = cuda_ms(lambda: kernel_fn(xs, mod.weight, mod.bias, act))
+        t_p = cuda_ms(lambda: plain_fn(xs, mod.weight, mod.bias, act))
         err = max(err, e)
         ms += count * t_k
         plain_ms += count * t_p
-        rows.append(f"{H}x{W}:{C}->{Cout}x{count} {t_k:.3f}/{t_p:.3f}ms")
-        del xs, y, ref
-    print(f"(b) conv kernel vs plain: {len(shapes)} layer shapes ok, max_abs_err {err:.3e}, "
+        rows.append("x".join(map(str, shape[:-1])) + f":{shape[-1]}->{Cout}x{count} "
+                    f"{t_k:.3f}/{t_p:.3f}ms")
+        del xs
+    return err, ms, plain_ms, rows
+
+
+def phase_b(net, dev, conv):
+    """Conv kernel vs plain at the full-width forward's layer shapes."""
+    x = torch.rand(FWD_SIZE, FWD_SIZE, 1, device=dev)
+    err, ms, plain_ms, rows = conv_layers_vs_plain(net, x, dev, conv.conv3x3_hwc,
+                                                   conv.conv3x3_hwc_plain)
+    print(f"(b) conv kernel vs plain: {len(rows)} layer shapes ok, max_abs_err {err:.3e}, "
           f"full-width forward convs {ms:.2f} ms kernel / {plain_ms:.2f} ms plain; "
           + "; ".join(rows), flush=True)
     return err, ms, plain_ms
@@ -216,12 +267,90 @@ def phase_e(dev, conv, po, matching, StarDist2D):
     return launches
 
 
+def phase_f(net3, dev, conv):
+    """conv3d kernel vs plain at the full-width 3D forward's layer shapes."""
+    x = torch.rand(*FWD3D_SHAPE, 1, device=dev)
+    err, ms, plain_ms, rows = conv_layers_vs_plain(net3, x, dev, conv.conv3x3x3_dhwc,
+                                                   conv.conv3x3x3_dhwc_plain)
+    print(f"(f) conv3d kernel vs plain: {len(rows)} layer shapes ok, max_abs_err {err:.3e}, "
+          f"full-width 3D forward convs {ms:.2f} ms kernel / {plain_ms:.2f} ms plain "
+          f"(per shape kernel/plain); " + "; ".join(rows), flush=True)
+    return err, ms, plain_ms
+
+
+def phase_g(net3, dev):
+    g = torch.Generator().manual_seed(3)
+    x = torch.rand(*FWD3D_SHAPE, 1, generator=g).to(dev)
+    prob, dist = net3(x)
+    prob_p, dist_p = net3(x, plain=True)
+    torch.cuda.synchronize()
+    out = tuple(s // gr for s, gr in zip(FWD3D_SHAPE, net3.grid))
+    check(tuple(prob.shape) == out and tuple(dist.shape) == (net3.n_rays,) + out,
+          "3D forward shapes")
+    check(bool(torch.isfinite(dist).all()) and bool(torch.isfinite(prob).all())
+          and bool(torch.isfinite(dist_p).all()), "non-finite 3D forward output")
+    e_prob = (prob - prob_p).abs().max().item()
+    e_dist = ((dist - dist_p).abs().max() / dist_p.abs().max().clamp_min(1.0)).item()
+    check(e_prob < FWD_TOL and e_dist < FWD_TOL,
+          f"3D kernel forward disagrees with plain: prob {e_prob}, dist {e_dist}")
+    del prob, dist, prob_p, dist_p
+    t_k = cuda_ms(lambda: net3(x))
+    t_p = cuda_ms(lambda: net3(x, plain=True))
+    print(f"(g) full-width 3D forward {'x'.join(map(str, FWD3D_SHAPE))} (Config3D(grid=(1, 2, 2)), "
+          f"seeded weights): kernel {t_k:.2f} ms, plain {t_p:.2f} ms; prob max abs diff "
+          f"{e_prob:.2e}, dist max rel diff {e_dist:.2e}", flush=True)
+
+
+def phase_h(dev, conv, matching, StarDist3D):
+    model = StarDist3D(None, "3D_demo", "models/examples", device=dev)
+    img, lbl = synthetic_nuclei_3d(E2E3D_SHAPE, seed=3)
+    model.predict_instances(img)                       # warm-up: allocator, caches
+    torch.cuda.synchronize()
+    conv.KERNEL3D.launches = 0
+    t0 = time.perf_counter()
+    labels, details = model.predict_instances(img)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = conv.KERNEL3D.launches
+    n_conv = len(model.net.conv_blocks())
+    check(launches == n_conv, f"conv3d launches {launches} != {n_conv} convs x 1 call")
+    check(labels.shape == img.shape and labels.max() > 0, "empty label volume")
+    ap = matching(lbl, labels, thresh=0.1).accuracy
+    check(ap >= 0.8, f"AP@0.1 {ap} < 0.8")
+    ap5 = matching(lbl, labels, thresh=0.5).accuracy
+    t = details["timings_s"]
+    c = details["nms_counters"]
+    print(f"(h) 3D predict_instances {'x'.join(map(str, E2E3D_SHAPE))} on the card: wall "
+          f"{wall * 1e3:.1f} ms = forward {t['forward'] * 1e3:.1f} + extract "
+          f"{t['extract'] * 1e3:.1f} + nms {t['nms'] * 1e3:.1f} (exact lattice test "
+          f"{c['exact_s'] * 1e3:.1f}) + raster {t['raster'] * 1e3:.1f} ms (+ host setup); "
+          f"{c['n_candidates']} candidates, {c['n_pairs']} bbox pairs, {c['n_eval_pairs']} "
+          f"exact pairs in {c['n_rounds']} rounds, {c['n_survivors']} survivors, "
+          f"{int(labels.max())} objects ({int(lbl.max())} true), AP@0.1 {ap:.4f}, AP@0.5 "
+          f"{ap5:.4f}; conv3d launches {launches}", flush=True)
+
+    crop = img[:CMP3D_SHAPE[0], :CMP3D_SHAPE[1], :CMP3D_SHAPE[2]]
+    lab_gpu, _ = model.predict_instances(crop)
+    cpu_model = StarDist3D(None, "3D_demo", "models/examples", device="cpu")
+    t0 = time.perf_counter()
+    lab_cpu, _ = cpu_model.predict_instances(crop)
+    t_cpu = time.perf_counter() - t0
+    acc = matching(lab_cpu, lab_gpu, thresh=0.5).accuracy
+    n_gpu, n_cpu = int(lab_gpu.max()), int(lab_cpu.max())
+    check(n_cpu > 0 and acc >= 0.9 and abs(n_gpu - n_cpu) <= 1,
+          f"card (bf16) vs CPU (f32) labels at {CMP3D_SHAPE}: accuracy {acc}, "
+          f"objects {n_gpu} / {n_cpu}")
+    print(f"(h) {'x'.join(map(str, CMP3D_SHAPE))} crop card vs CPU plain path: matching "
+          f"accuracy {acc:.4f}, objects {n_gpu} / {n_cpu}, CPU call {t_cpu:.1f} s", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from stardist_torch.matching import matching
-    from stardist_torch.models import Config2D, StarDist2D
+    from stardist_torch.models import Config2D, Config3D, StarDist2D, StarDist3D
     from stardist_torch.models.unet import StarDistNet
     from stardist_torch.ops import conv, pair_overlap as po
 
@@ -233,12 +362,13 @@ def main():
                          check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
-    conv.KERNEL.build()
-    po.KERNEL.build()
+    kernels = (conv.KERNEL, po.KERNEL, conv.KERNEL3D)
+    with ThreadPoolExecutor(len(kernels)) as pool:     # one nvcc per source, all at once
+        list(pool.map(lambda k: k.build(), kernels))
     print(f"(a) {torch.cuda.get_device_name(0)} [{smi}]; torch {torch.__version__} "
           f"CUDA {torch.version.cuda}; kernels built in {time.perf_counter() - t0:.1f} s "
-          f"(conv {conv.KERNEL.build_seconds:.1f} s, pair {po.KERNEL.build_seconds:.1f} s)",
-          flush=True)
+          f"(conv {conv.KERNEL.build_seconds:.1f} s, pair {po.KERNEL.build_seconds:.1f} s, "
+          f"conv3d {conv.KERNEL3D.build_seconds:.1f} s)", flush=True)
 
     net = StarDistNet(Config2D(grid=(2, 2)), dtype=torch.bfloat16)
     net.init_weights(torch.Generator().manual_seed(0))
@@ -247,6 +377,17 @@ def main():
     pair = phase_c(dev, po)
     phase_d(net, dev)
     launches = phase_e(dev, conv, po, matching, StarDist2D)
+    del net
+    torch.cuda.empty_cache()
+
+    net3 = StarDistNet(Config3D(grid=(1, 2, 2)), dtype=torch.bfloat16)
+    net3.init_weights(torch.Generator().manual_seed(0))
+    net3.to(dev)
+    conv3d_err, conv3d_ms, conv3d_plain_ms = phase_f(net3, dev, conv)
+    phase_g(net3, dev)
+    del net3
+    torch.cuda.empty_cache()
+    launches["conv3d"] = phase_h(dev, conv, matching, StarDist3D)
 
     record = {"kernels": [
         {"name": "conv3x3_bf16_hwc", "route": "cuda",
@@ -259,6 +400,11 @@ def main():
          "replaces": "stardist_tpu/ops/pair_overlap.py:82",
          "launches": launches["pair"], "max_abs_err": max(pair[8][3], pair[16][3]),
          "ms": pair[16][0], "plain_ms": pair[16][1]},
+        {"name": "conv3x3x3_bf16_dhwc", "route": "cuda",
+         "source": "stardist_torch/csrc/conv3x3x3.cu",
+         "replaces": "stardist_tpu/ops/conv_pallas.py:574",
+         "launches": launches["conv3d"], "max_abs_err": conv3d_err,
+         "ms": conv3d_ms, "plain_ms": conv3d_plain_ms},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

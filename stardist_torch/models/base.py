@@ -20,7 +20,6 @@ import torch
 
 from ..core.axes import axes_check_and_normalize, axes_dict, move_image_axes
 from ..core.normalize import NoNormalizer, Normalizer
-from ..nms import descending_order
 from .unet import StarDistNet
 from .weights import load_flax_checkpoint, params_from_flax
 
@@ -177,13 +176,19 @@ class StarDistBase:
             out.append((blo, max(bhi if bhi is not None and bhi > 0 else 0, sp // g - ub_grid)))
         return tuple(out)
 
-    def _extract(self, prob, dist, prob_thresh, b_key):
+    @staticmethod
+    def _extract(prob, dist, prob_thresh, b_key):
         """Candidates above ``prob_thresh`` and inside the border: (prob (K,),
-        dist (K, R) clamped at 1e-3, points (K, 2) in output-grid units), in
-        descending-prob order with ties in descending flat index."""
+        dist (K, R) clamped at 1e-3, points (K, n_dim) in output-grid units).
+
+        The list comes in the reference's ``lax.top_k`` order: descending
+        prob, ties in ascending flat index. The NMS then sorts it with
+        :func:`..nms.descending_order`, which puts ties in descending flat
+        index, as the reference's ``np.argsort(prob, kind="stable")[::-1]``
+        does on the same list."""
         mask = prob > prob_thresh
         for ax, (blo, bhi) in enumerate(b_key):
-            sl = [slice(None)] * 2
+            sl = [slice(None)] * prob.dim()
             if blo > 0:
                 sl[ax] = slice(0, blo)
                 mask[tuple(sl)] = False
@@ -192,17 +197,20 @@ class StarDistBase:
                 mask[tuple(sl)] = False
         idx = torch.nonzero(mask.flatten()).flatten()
         vals = prob.flatten()[idx]
-        order = descending_order(vals)
+        order = torch.sort(vals, descending=True, stable=True).indices
         idx, vals = idx[order], vals[order]
         d = dist.reshape(dist.shape[0], -1)[:, idx].t().clamp_min(1e-3)
-        W = prob.shape[1]
-        points = torch.stack([idx // W, idx % W], dim=1)
+        coords, rest = [], idx
+        for s in reversed(prob.shape):
+            coords.append(rest % s)
+            rest = rest // s
+        points = torch.stack(coords[::-1], dim=1)
         return vals, d, points
 
     def predict_sparse(self, img, prob_thresh=None, axes=None, normalizer=None,
                        n_tiles=None, b=2, timings=None):
-        """Sparse prediction: (prob (K,), dist (K, R), points (K, 2)) tensors
-        on ``self.device``; points in full-resolution pixels."""
+        """Sparse prediction: (prob (K,), dist (K, R), points (K, n_dim))
+        tensors on ``self.device``; points in full-resolution pixels."""
         if prob_thresh is None:
             prob_thresh = self.thresholds.prob
         x, axes_net, resizer = self._predict_setup(img, axes, normalizer, n_tiles)
@@ -222,9 +230,9 @@ class StarDistBase:
     def predict_instances(self, img, axes=None, normalizer=None, prob_thresh=None,
                           nms_thresh=None, n_tiles=None, b=2, return_labels=True,
                           verbose=False):
-        """Predict -> NMS -> rasterize. Returns (labels (Y, X) int32 numpy,
-        details dict with ``coord``, ``points``, ``prob``, ``nms_counters``
-        and the stage times ``timings_s``)."""
+        """Predict -> NMS -> rasterize. Returns (labels (*sp) int32 numpy,
+        details dict: the survivors (see the model's ``_render_survivors``),
+        ``nms_counters`` and the stage times ``timings_s``)."""
         _axes = self._normalize_axes(img, axes)
         x_shape = move_image_axes(img, _axes, self.config.axes, adjust_singletons=True).shape
         shape_inst = tuple(s for s, a in zip(x_shape, self.config.axes) if a != "C")
@@ -238,12 +246,42 @@ class StarDistBase:
         details["timings_s"] = timings
         return labels, details
 
+    def _instances_from_prediction(self, img_shape, prob, dist, points,
+                                   nms_thresh=None, return_labels=True,
+                                   timings=None, verbose=False):
+        """NMS + rasterization -> (labels, details); reference
+        model2d.py:512-563 and model3d.py:314-359 (sparse branch)."""
+        if nms_thresh is None:
+            nms_thresh = self.thresholds.nms
+        counters = {}
+        t0 = time.perf_counter()
+        points, probi, disti = self._nms_sparse(
+            dist, prob, points, nms_thresh=nms_thresh, verbose=verbose,
+            stats=counters)[:3]
+        _sync(self.device)
+        t1 = time.perf_counter()
+        labels, details = self._render_survivors(img_shape, disti, points, probi,
+                                                 return_labels=return_labels)
+        if timings is not None:
+            timings.update(nms=t1 - t0, raster=time.perf_counter() - t1)
+        details["nms_counters"] = counters
+        return labels, details
+
     def _axes_div_by(self, query_axes):
-        raise NotImplementedError()
+        query_axes = axes_check_and_normalize(query_axes)
+        div_by = dict(zip(
+            self.config.axes.replace("C", ""),
+            tuple(p ** self.config.unet_n_depth * g
+                  for p, g in zip(self.config.unet_pool, self.config.grid)),
+        ))
+        return tuple(div_by.get(a, 1) for a in query_axes)
 
     @property
     def _config_class(self):
         raise NotImplementedError()
 
-    def _instances_from_prediction(self, *args, **kwargs):
+    def _nms_sparse(self, dist, prob, points, nms_thresh, verbose, stats):
+        raise NotImplementedError()
+
+    def _render_survivors(self, img_shape, disti, points, probi, return_labels=True):
         raise NotImplementedError()

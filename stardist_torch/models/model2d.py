@@ -1,16 +1,13 @@
 """2D StarDist model (counterpart of ``stardist_tpu/models/model2d.py``)."""
 from __future__ import annotations
 
-import time
-
 import torch
 
-from ..core.axes import axes_check_and_normalize
 from ..core.config import BaseConfig
 from ..geometry import dist_to_coord, polygons_to_label
 from ..nms import non_maximum_suppression_sparse
 from ..utils import _normalize_grid
-from .base import StarDistBase, _sync
+from .base import StarDistBase
 
 
 class Config2D(BaseConfig):
@@ -88,26 +85,9 @@ class StarDist2D(StarDistBase):
     ``StarDist2D(Config2D(...), device=...)`` builds one with zero weights
     (see ``net.init_weights``)."""
 
-    def _instances_from_prediction(self, img_shape, prob, dist, points,
-                                   nms_thresh=None, return_labels=True,
-                                   timings=None, verbose=False):
-        """NMS + rasterization -> (labels, details); reference
-        model2d.py:512-563."""
-        if nms_thresh is None:
-            nms_thresh = self.thresholds.nms
-        counters = {}
-        t0 = time.perf_counter()
-        points, probi, disti, _ = non_maximum_suppression_sparse(
-            dist, prob, points, nms_thresh=nms_thresh, verbose=verbose,
-            stats=counters)
-        _sync(self.device)
-        t1 = time.perf_counter()
-        labels, details = self._render_survivors(img_shape, disti, points, probi,
-                                                 return_labels=return_labels)
-        if timings is not None:
-            timings.update(nms=t1 - t0, raster=time.perf_counter() - t1)
-        details["nms_counters"] = counters
-        return labels, details
+    def _nms_sparse(self, dist, prob, points, nms_thresh, verbose, stats):
+        return non_maximum_suppression_sparse(dist, prob, points, nms_thresh=nms_thresh,
+                                              verbose=verbose, stats=stats)
 
     def _render_survivors(self, img_shape, disti, points, probi, return_labels=True):
         """Rasterize the NMS survivors (on their device) and build the result
@@ -121,15 +101,6 @@ class StarDist2D(StarDistBase):
                                 for t in (disti, points, probi))
         coord = dist_to_coord(disti, points)
         return labels, dict(coord=coord, points=points, prob=probi)
-
-    def _axes_div_by(self, query_axes):
-        query_axes = axes_check_and_normalize(query_axes)
-        div_by = dict(zip(
-            self.config.axes.replace("C", ""),
-            tuple(p ** self.config.unet_n_depth * g
-                  for p, g in zip(self.config.unet_pool, self.config.grid)),
-        ))
-        return tuple(div_by.get(a, 1) for a in query_axes)
 
     @property
     def _config_class(self):

@@ -10,7 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.nms import nms_polygons
+from .ops.nms import nms_polygons, nms_polyhedra
+from .ops.polyhedron import ray_tensors
 
 
 def _as_tensor(x, device=None):
@@ -59,3 +60,49 @@ def non_maximum_suppression_inds(dist, points, scores, thresh=0.5, stats=None):
     keep = nms_polygons(dist.to(torch.float32), points.to(torch.float32),
                         thresh=float(thresh), stats=stats)
     return keep.cpu().numpy() if as_numpy else keep
+
+
+def non_maximum_suppression_3d_sparse(dist, prob, points, rays, b=2, nms_thresh=0.5,
+                                      verbose=False, stats=None):
+    """NMS from sparse 3D candidate lists (``rays``: the model's ``Rays``).
+
+    Returns (points, prob, dist, inds_original) of the survivors, in
+    descending-prob order."""
+    as_numpy = not isinstance(dist, torch.Tensor)
+    dist = _as_tensor(dist)
+    prob = _as_tensor(prob, dist.device)
+    points = _as_tensor(points, dist.device)
+    assert dist.dim() == 2 and prob.dim() == 1 and points.dim() == 2 \
+        and dist.shape[-1] == len(rays) and points.shape[-1] == 3 \
+        and len(prob) == len(dist) == len(points)
+
+    order = descending_order(prob)
+    probi, disti, pointsi = prob[order], dist[order], points[order]
+    keep = non_maximum_suppression_3d_inds(disti, pointsi, rays, scores=probi,
+                                           thresh=nms_thresh, stats=stats)
+    if verbose:
+        print("keeping %s/%s polyhedra" % (int(keep.sum()), len(keep)))
+    out = pointsi[keep], probi[keep], disti[keep], order[keep]
+    if as_numpy:
+        out = tuple(t.cpu().numpy() for t in out)
+    return out
+
+
+def non_maximum_suppression_3d_inds(dist, points, rays, scores, thresh=0.5, stats=None):
+    """Greedy NMS over 3D star polyhedra, sorted here by ``scores`` (the
+    reference sorts again even when :func:`non_maximum_suppression_3d_sparse`
+    has sorted already, which puts equal scores back in ascending list
+    order). Returns bool survivors in the given order (a tensor for tensor
+    input, else a numpy array)."""
+    as_numpy = not isinstance(dist, torch.Tensor)
+    dist = _as_tensor(dist)
+    points = _as_tensor(points, dist.device)
+    scores = _as_tensor(scores, dist.device)
+    assert dist.dim() == 2 and points.dim() == 2 and dist.shape[1] == len(rays) \
+        and points.shape[0] == dist.shape[0] == scores.shape[0]
+    ind = descending_order(scores)
+    ray_dirs, faces = ray_tensors(rays, dist.device)
+    survivors = torch.empty(len(ind), dtype=torch.bool, device=dist.device)
+    survivors[ind] = nms_polyhedra(dist[ind].to(torch.float32), points[ind].to(torch.float32),
+                                   ray_dirs, faces, thresh=float(thresh), stats=stats)
+    return survivors.cpu().numpy() if as_numpy else survivors

@@ -1,11 +1,14 @@
-"""3x3 SAME convolution + bias + activation (counterpart of
-``stardist_tpu/ops/conv_pallas.py::conv2d_hcw``).
+"""3x3 and 3x3x3 SAME convolution + bias + activation (counterparts of
+``stardist_tpu/ops/conv_pallas.py::conv2d_hcw`` and ``conv3d_hcw``).
 
-On a CUDA tensor the convolution runs in the hand-written kernel
-``csrc/conv3x3.cu`` (bf16 in and out, f32 accumulation); on a CPU tensor it
-runs in the plain PyTorch version :func:`conv3x3_hwc_plain`. The model keeps
-its activations channels-last, ``(H, W, C)``, and calls :func:`conv3x3_hwc`;
-:func:`conv2d_hcw` keeps the JAX function's ``(H, C, W)`` signature.
+On a CUDA tensor the convolution runs in a hand-written kernel
+(``csrc/conv3x3.cu`` in 2D, ``csrc/conv3x3x3.cu`` in 3D; bf16 in and out,
+f32 accumulation); on a CPU tensor it runs in the plain PyTorch version
+(:func:`conv3x3_hwc_plain`, :func:`conv3x3x3_dhwc_plain`). The model keeps
+its activations channels-last, ``(H, W, C)`` or ``(D, H, W, C)``, and calls
+:func:`conv3x3_hwc` / :func:`conv3x3x3_dhwc`; :func:`conv2d_hcw` and
+:func:`conv3d_hcw` keep the JAX functions' ``(H, C, W)`` / ``(D, H, C, W)``
+signatures.
 """
 from __future__ import annotations
 
@@ -21,6 +24,9 @@ ACTS = {"linear": 0, "relu": 1, "elu": 2}
 KERNEL = CudaKernel(
     "conv3x3.cu", "conv3x3_bf16_hwc",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+KERNEL3D = CudaKernel(
+    "conv3x3x3.cu", "conv3x3x3_bf16_dhwc",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 def _activate(y, act):
@@ -35,7 +41,8 @@ def _activate(y, act):
 
 def _pad_channels(x, w):
     """Zero-pad C to a multiple of 8 (the C_in = 1 first layer), as
-    conv_pallas.py does; zero channels times zero weights add nothing."""
+    conv_pallas.py does; zero channels times zero weights add nothing.
+    x (..., C), w (3, ..., 3, C, Cout)."""
     C = x.shape[-1]
     Cp = -(-C // 8) * 8
     if Cp != C:
@@ -44,28 +51,44 @@ def _pad_channels(x, w):
     return x, w
 
 
-def conv3x3_hwc_plain(x, w, b=None, act="relu"):
-    """Plain PyTorch version. x (H, W, C), w (3, 3, C, Cout) HWIO, b (Cout,).
+def _conv_plain(x, w, b, act):
+    """Plain PyTorch version of both convs. x (*sp, C) channels-last with
+    2 or 3 spatial dims, w (3,)*nd + (C, Cout), b (Cout,).
 
-    A bf16 input is computed as the kernel does: bf16 operands, f32 sums,
+    A bf16 input is computed as the kernels do: bf16 operands, f32 sums,
     bias and activation in f32, output rounded to bf16. A float32 input is
     computed and returned in float32 (the reference's f32 forward)."""
+    nd = x.dim() - 1
     out_dtype = x.dtype
-    xf = x.float().permute(2, 0, 1)[None]                  # (1, C, H, W)
-    wf = w.to(x.dtype).float().permute(3, 2, 0, 1)          # (Cout, C, 3, 3)
-    y = F.conv2d(xf, wf, None if b is None else b.float(), padding=1)
-    y = _activate(y[0].permute(1, 2, 0), act)               # (H, W, Cout)
+    xf = x.float().movedim(-1, 0)[None]                         # (1, C, *sp)
+    wf = w.to(x.dtype).float().permute(nd + 1, nd, *range(nd))  # (Cout, C, 3, ...)
+    conv = F.conv2d if nd == 2 else F.conv3d
+    y = conv(xf, wf, None if b is None else b.float(), padding=1)
+    y = _activate(y[0].movedim(0, -1), act)                     # (*sp, Cout)
     return y.to(out_dtype).contiguous()
 
 
-def conv3x3_hwc_cuda(x, w, b=None, act="relu"):
-    """Launch ``csrc/conv3x3.cu``. x (H, W, C) bf16 CUDA -> (H, W, Cout) bf16."""
+def conv3x3_hwc_plain(x, w, b=None, act="relu"):
+    """Plain PyTorch 3x3 conv. x (H, W, C), w (3, 3, C, Cout) HWIO, b (Cout,)."""
+    return _conv_plain(x, w, b, act)
+
+
+def conv3x3x3_dhwc_plain(x, w, b=None, act="relu"):
+    """Plain PyTorch 3x3x3 conv. x (D, H, W, C), w (3, 3, 3, C, Cout)
+    DHWIO, b (Cout,)."""
+    return _conv_plain(x, w, b, act)
+
+
+def _conv_cuda(kernel, x, w, b, act):
+    """Launch ``kernel`` on channels-last bf16 x (*sp, C) -> (*sp, Cout) bf16.
+    C and Cout are zero-padded to multiples of 8 (the kernels' 16-byte
+    loads); the padded output channels are cut off again."""
+    nd = w.dim() - 2
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the conv kernel takes bfloat16 activations, got {x.dtype}")
-    if x.dim() != 3 or w.shape[:2] != (3, 3) or w.shape[2] != x.shape[-1]:
+    if x.dim() != nd + 1 or w.shape[:nd] != (3,) * nd or w.shape[nd] != x.shape[-1]:
         raise ValueError(f"bad shapes x {tuple(x.shape)}, w {tuple(w.shape)}")
     x, w = _pad_channels(x, w)
-    H, W, C = x.shape
     Cout = w.shape[-1]
     Cp = -(-Cout // 8) * 8
     wk = w.to(torch.bfloat16)
@@ -76,28 +99,58 @@ def conv3x3_hwc_cuda(x, w, b=None, act="relu"):
     x = x.contiguous()
     wk = wk.contiguous()
     bk = bk.contiguous()
-    y = torch.empty((H, W, Cp), dtype=torch.bfloat16, device=x.device)
-    KERNEL.launch(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(wk.data_ptr()),
+    y = torch.empty(x.shape[:-1] + (Cp,), dtype=torch.bfloat16, device=x.device)
+    kernel.launch(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(wk.data_ptr()),
                   ctypes.c_void_p(bk.data_ptr()), ctypes.c_void_p(y.data_ptr()),
-                  H, W, C, Cp, ACTS[act], stream_ptr(x.device))
+                  *x.shape, Cp, ACTS[act], stream_ptr(x.device))
     return y if Cp == Cout else y[..., :Cout].contiguous()
+
+
+def conv3x3_hwc_cuda(x, w, b=None, act="relu"):
+    """Launch ``csrc/conv3x3.cu``. x (H, W, C) bf16 CUDA -> (H, W, Cout) bf16."""
+    return _conv_cuda(KERNEL, x, w, b, act)
+
+
+def conv3x3x3_dhwc_cuda(x, w, b=None, act="relu"):
+    """Launch ``csrc/conv3x3x3.cu``. x (D, H, W, C) bf16 CUDA ->
+    (D, H, W, Cout) bf16."""
+    return _conv_cuda(KERNEL3D, x, w, b, act)
+
+
+def _dispatch(cuda_fn, plain_fn, x, w, b, act):
+    """CUDA tensor: the kernel (bf16 only); CPU tensor: the plain version."""
+    if act not in ACTS:
+        raise ValueError(f"unknown activation {act!r}")
+    if x.is_cuda:
+        return cuda_fn(x, w, b, act)
+    if x.device.type != "cpu":
+        raise RuntimeError(f"no conv kernel for device {x.device}")
+    return plain_fn(x, w, b, act)
 
 
 def conv3x3_hwc(x, w, b=None, act="relu"):
     """3x3 SAME conv on channels-last (H, W, C). CUDA tensor: the kernel
     (bf16 only); CPU tensor: :func:`conv3x3_hwc_plain`."""
-    if act not in ACTS:
-        raise ValueError(f"unknown activation {act!r}")
-    if x.is_cuda:
-        return conv3x3_hwc_cuda(x, w, b, act)
-    if x.device.type != "cpu":
-        raise RuntimeError(f"no conv kernel for device {x.device}")
-    return conv3x3_hwc_plain(x, w, b, act)
+    return _dispatch(conv3x3_hwc_cuda, conv3x3_hwc_plain, x, w, b, act)
+
+
+def conv3x3x3_dhwc(x, w, b=None, act="relu"):
+    """3x3x3 SAME conv on channels-last (D, H, W, C). CUDA tensor: the
+    kernel (bf16 only); CPU tensor: :func:`conv3x3x3_dhwc_plain`."""
+    return _dispatch(conv3x3x3_dhwc_cuda, conv3x3x3_dhwc_plain, x, w, b, act)
 
 
 def conv2d_hcw(x, w, b=None, act="relu"):
     """Same contract as ``stardist_tpu.ops.conv_pallas.conv2d_hcw``:
     x (H, C, W) any float dtype, computed in bfloat16; w (3, 3, C, Cout);
     returns (H, Cout, W) bfloat16."""
-    y = conv3x3_hwc(x.to(torch.bfloat16).permute(0, 2, 1).contiguous(), w, b, act)
-    return y.permute(0, 2, 1).contiguous()
+    y = conv3x3_hwc(x.to(torch.bfloat16).transpose(-1, -2).contiguous(), w, b, act)
+    return y.transpose(-1, -2).contiguous()
+
+
+def conv3d_hcw(x, w, b=None, act="relu"):
+    """Same contract as ``stardist_tpu.ops.conv_pallas.conv3d_hcw``:
+    x (D, H, C, W) any float dtype, computed in bfloat16; w (3, 3, 3, C,
+    Cout) DHWIO; returns (D, H, Cout, W) bfloat16."""
+    y = conv3x3x3_dhwc(x.to(torch.bfloat16).transpose(-1, -2).contiguous(), w, b, act)
+    return y.transpose(-1, -2).contiguous()

@@ -1,6 +1,6 @@
-"""Greedy star-polygon NMS (counterpart of ``stardist_tpu/ops/nms.py::
-nms_polygons`` with the package-wide overlap criterion of
-``stardist_tpu/ops/nms2d_fast.py``).
+"""Greedy star-polygon and star-polyhedron NMS (counterpart of
+``stardist_tpu/ops/nms.py::nms_polygons``, with the package-wide overlap
+criterion of ``stardist_tpu/ops/nms2d_fast.py``, and of ``nms_polyhedra``).
 
 Semantics (reference stardist/lib/stardist2d.cpp:390-615): candidates come
 sorted by descending score; a kept candidate i suppresses every later j with
@@ -18,6 +18,13 @@ decision for one pair is, in order:
 For N <= ``DENSE_MAX`` the reference skips step 2 (its dense path); so does
 this port.
 
+In 3D (:func:`nms_polyhedra`) the steps are the same with the reference's
+3D rule: the ball-lens and bbox bounds of ``_bounds_block_3d``, then the
+exact overlap of ``_overlap_block_3d``, the polyhedra's common voxels
+counted on an integer lattice of at most S = 12 points per axis inside the
+bbox intersection and weighted by the lattice stride (plain torch: the
+reference runs no Pallas kernel there); no bounds for N <= ``DENSE_MAX_3D``.
+
 The greedy result is the unique fixpoint of keep[j] = not any(keep[i] and
 sup(i, j), i < j), so any evaluation order gives the same keep flags as the
 reference's blocked host loop. The GPU form works on one flat list of the
@@ -33,12 +40,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+import time
+
 from .pair_overlap import pair_frac
 from .polygon import polygon_areas, polygon_bboxes
+from .polyhedron import (points_in_indexed_polyhedra, polyhedron_bboxes,
+                         polyhedron_face_inverses, polyhedron_inner_radius, polyhedron_volumes)
 
 CASCADE_S = 8
 CASCADE_MARGIN = 0.1
 DENSE_MAX = 256
+DENSE_MAX_3D = 32
+LATTICE_S = 12
+LATTICE_PAIRS = 64     # pairs per exact-overlap step (bounds the (pairs, S^3, 8) temporaries)
+LATTICE_PAIRS_CUDA = 2048  # the same on a GPU (fewer, larger launches)
+LATTICE_BUDGET = 1024  # exact pairs per greedy round in 3D (CPU)
+LATTICE_BUDGET_CUDA = 16384  # the same on a GPU, which runs more pairs at once
+ROW_BLOCK = 512        # candidates per block of the 3D greedy
 
 
 def _lens_area_lb(r1, r2, d):
@@ -70,36 +88,90 @@ def _inner_radius_2d(dist):
     return torch.amin(d0 * d1 * np.sin(dphi) / chord, dim=-1)
 
 
-def _candidate_pairs(points, rout):
-    """All (i, j), i < j, whose centres are close enough for their bboxes
-    to meet (|dp| < rout_i + rout_j per axis): a cell grid of side
-    2*max(rout) + 1, candidates paired with the 3x3 neighbouring cells."""
-    N = points.shape[0]
+def _lens_volume_3d(r1, r2, d):
+    """Intersection volume of two balls."""
+    d = torch.clamp_min(d, 1e-6)
+    rmin = torch.minimum(r1, r2)
+    full = 4.0 / 3.0 * np.pi * (rmin * rmin * rmin)
+    s = r1 + r2 - d
+    lens = (np.pi * (s * s) * (d * d + 2 * d * (r1 + r2) - 3 * (r1 * r1 + r2 * r2)
+                               + 6 * r1 * r2) / (12 * d))
+    zero = torch.zeros_like(d)
+    return torch.where(d >= r1 + r2, zero, torch.where(d <= torch.abs(r1 - r2), full, lens))
+
+
+def _candidate_pairs(points, rout, rows=None):
+    """All (i, j), i < j, i in ``rows`` (default: every candidate), whose
+    centres are close enough for their bboxes to meet (|dp| <= rout_i +
+    rout_j per axis): a cell grid of side 2*max(rout) + 1 over the 2 or 3
+    axes, candidates paired with the 3^nd neighbouring cells."""
+    N, nd = points.shape
     dev = points.device
     cell = float(2 * rout.max().item() + 1)
-    cr = torch.floor(points[:, 0] / cell).long()
-    cc = torch.floor(points[:, 1] / cell).long()
-    cr = cr - cr.min()
-    cc = cc - cc.min()
-    ncol = int(cc.max().item()) + 3
-    key = (cr + 1) * ncol + (cc + 1)
+    cells = torch.floor(points / cell).long()
+    cells = cells - cells.amin(dim=0) + 1
+    dims = (cells.amax(dim=0) + 2).tolist()
+    key = torch.zeros(N, dtype=torch.long, device=dev)
+    strides = []
+    for ax in range(nd):
+        stride = int(np.prod(dims[ax + 1:]))
+        key += cells[:, ax] * stride
+        strides.append(stride)
     key_sorted, order = torch.sort(key, stable=True)
+    if rows is None:
+        rows = torch.arange(N, device=dev)
     i_all, j_all = [], []
-    for dr in (-1, 0, 1):
-        for dc in (-1, 0, 1):
-            nkey = key + dr * ncol + dc
-            lo = torch.searchsorted(key_sorted, nkey, right=False)
-            hi = torch.searchsorted(key_sorted, nkey, right=True)
-            cnt = hi - lo
-            i = torch.repeat_interleave(torch.arange(N, device=dev), cnt)
-            starts = torch.repeat_interleave(lo, cnt)
-            offs = torch.arange(i.numel(), device=dev) - torch.repeat_interleave(
-                torch.cumsum(cnt, 0) - cnt, cnt)
-            j = order[starts + offs]
-            sel = i < j
-            i_all.append(i[sel])
-            j_all.append(j[sel])
+    for shift in np.ndindex(*(3,) * nd):
+        nkey = key[rows] + sum((o - 1) * st for o, st in zip(shift, strides))
+        lo = torch.searchsorted(key_sorted, nkey, right=False)
+        hi = torch.searchsorted(key_sorted, nkey, right=True)
+        cnt = hi - lo
+        i = torch.repeat_interleave(rows, cnt)
+        starts = torch.repeat_interleave(lo, cnt)
+        offs = torch.arange(i.numel(), device=dev) - torch.repeat_interleave(
+            torch.cumsum(cnt, 0) - cnt, cnt)
+        j = order[starts + offs]
+        sel = i < j
+        i_all.append(i[sel])
+        j_all.append(j[sel])
     return torch.cat(i_all), torch.cat(j_all)
+
+
+def _resolve(N, i, j, sup, amb, exact, budget=None):
+    """Greedy keep flags from a flat pair list: rounds of (a) the fixpoint
+    over the known suppressions, undecided pairs counting as
+    non-suppressing, and (b) ``exact(pair_idx)`` verdicts for the undecided
+    pairs whose suppressor is currently kept.
+
+    The loop ends when no undecided pair has a kept suppressor; the keep
+    flags are then a fixpoint of the true suppression relation, which is
+    unique, so they are the greedy result. Without ``budget`` every such
+    pair is tested at once (one round, as a rule: the 2D NMS). With
+    ``budget`` (the 3D NMS, whose exact test is dear), a round tests only
+    pairs whose two candidates are both kept, and only those of the
+    lowest-ranked suppressors, as many as fit in ``budget`` pairs (at least
+    one suppressor's): the lowest-ranked one is final, so its tests are
+    never wasted, and the candidates it kills drop out before their own
+    pairs are tested; the loop then ends when no undecided pair joins two
+    kept candidates, which again leaves the unique fixpoint. Returns (keep,
+    exact pairs, rounds)."""
+    keep = torch.ones(N, dtype=torch.bool, device=sup.device)
+    n_eval = n_rounds = 0
+    while True:
+        keep = _greedy_fixpoint(N, i, j, sup, keep)
+        live = amb & keep[i]
+        if budget is not None:
+            live &= keep[j]
+        todo = torch.nonzero(live).flatten()
+        if todo.numel() == 0:
+            return keep, n_eval, n_rounds
+        if budget is not None and todo.numel() > budget:
+            rows = i[todo]
+            todo = todo[rows <= torch.sort(rows).values[budget - 1]]
+        sup[todo] = exact(todo)
+        amb[todo] = False
+        n_eval += todo.numel()
+        n_rounds += 1
 
 
 def _greedy_fixpoint(N, i, j, sup, keep):
@@ -167,18 +239,126 @@ def nms_polygons(dist, points, thresh=0.5, stats=None):
         sup = lb > thresh
         amb = ~sup & ~(ub <= thresh)
 
-    keep = torch.ones(N, dtype=torch.bool, device=dev)
-    n_eval = n_rounds = 0
-    while True:
-        keep = _greedy_fixpoint(N, i, j, sup, keep)
-        todo = torch.nonzero(amb & keep[i]).flatten()
-        if todo.numel() == 0:
-            break
-        sup[todo] = _cascade(dist, points, lo, hi, area, i[todo], j[todo], thresh)
-        amb[todo] = False
-        n_eval += todo.numel()
-        n_rounds += 1
+    keep, n_eval, n_rounds = _resolve(N, i, j, sup, amb, lambda t: _cascade(
+        dist, points, lo, hi, area, i[t], j[t], thresh))
     if stats is not None:
         stats.update(n_candidates=N, n_pairs=int(i.numel()), n_eval_pairs=n_eval,
                      n_rounds=n_rounds, n_survivors=int(keep.sum().item()))
     return keep
+
+
+def _lattice_overlap(points, lo, hi, vol, inv, valid, i, j, thresh, S=LATTICE_S):
+    """Exact-overlap verdicts (bool) for the polyhedron pairs (i, j): the
+    common voxels counted on the integer lattice inside the bbox
+    intersection (ceil/floor of its corners, stride max(ceil(n_vox/S), 1)
+    per axis, at most S points per axis), times the stride product, over
+    min(volume) + 1e-10, against ``thresh``.
+
+    Only the lattice points inside the intersection are tested against i,
+    and only those inside i against j (each point's verdict is its own, so
+    this skips work and changes no count)."""
+    plo = torch.ceil(torch.maximum(lo[i], lo[j]))                  # (P, 3)
+    phi = torch.floor(torch.minimum(hi[i], hi[j]))
+    n_vox = torch.clamp_min(phi - plo + 1, 0.0)
+    stride = torch.clamp_min(torch.ceil(n_vox / S), 1.0)
+    ar = torch.arange(S, dtype=torch.float32, device=lo.device)
+    pos = plo[:, :, None] + stride[:, :, None] * ar                # (P, 3, S), integers
+    ok = pos <= phi[:, :, None]
+    P = plo.shape[0]
+    m = (ok[:, 0, :, None, None] & ok[:, 1, None, :, None] & ok[:, 2, None, None, :]).reshape(P, -1)
+    pair, sample = torch.nonzero(m, as_tuple=True)
+    iz, iy, ix = sample // (S * S), (sample // S) % S, sample % S
+    q = torch.stack([pos[pair, 0, iz], pos[pair, 1, iy], pos[pair, 2, ix]], dim=-1)   # (K, 3)
+    sel = points_in_indexed_polyhedra(inv, valid, points, i[pair], q)
+    pair, q = pair[sel], q[sel]
+    sel = points_in_indexed_polyhedra(inv, valid, points, j[pair], q)
+    count = torch.bincount(pair[sel], minlength=P).float()
+    inter = count * (stride[:, 0] * stride[:, 1] * stride[:, 2])
+    return inter / (torch.minimum(vol[i], vol[j]) + 1e-10) > thresh
+
+
+def nms_polyhedra(dist, points, ray_dirs, faces, thresh=0.5, stats=None):
+    """Greedy NMS over score-sorted 3D star polyhedra.
+
+    dist (N, R) f32, points (N, 3) (full-resolution z, y, x), both sorted
+    by descending score, and the rays' ``ray_dirs`` (R, 3) / ``faces``
+    (F, 3), all on one device. Returns keep (N,) bool on that device.
+    ``stats``, if a dict, receives pair counts and ``exact_s``, the seconds
+    spent in the exact lattice test.
+
+    The reference's blocked order (``_blocked_greedy``): blocks of the
+    ``ROW_BLOCK`` lowest-ranked candidates not yet suppressed. Every
+    candidate ranked before a block is decided, so the block's pairs with
+    the later candidates near them (bounds first, exact tests through
+    :func:`_resolve`) decide the block's rows and suppress later candidates
+    for good; the suppressed ones never become rows. The pair list of one
+    block stays small where the 3D model's large, overlapping polyhedra
+    give each candidate thousands of bbox neighbours."""
+    N = dist.shape[0]
+    dev = dist.device
+    counts = dict(n_candidates=N, n_pairs=0, n_eval_pairs=0, n_rounds=0, n_survivors=N,
+                  exact_s=0.0)
+    if N <= 1:
+        if stats is not None:
+            stats.update(counts)
+        return torch.ones(N, dtype=torch.bool, device=dev)
+    dist = dist.to(torch.float32).contiguous()
+    points = points.to(torch.float32).contiguous()
+    ray_dirs = ray_dirs.to(dev, torch.float32)
+    faces = faces.to(dev, torch.int64)
+    thresh = float(thresh)
+    dense = N <= DENSE_MAX_3D
+    vol = polyhedron_volumes(dist, ray_dirs, faces)
+    lo, hi = polyhedron_bboxes(dist, points, ray_dirs)
+    rout = torch.amax(dist, dim=-1)
+    rin = None if dense else polyhedron_inner_radius(dist, ray_dirs, faces)
+    inv, valid = polyhedron_face_inverses(dist, ray_dirs, faces)
+    on_gpu = dev.type == "cuda"
+    budget = LATTICE_BUDGET_CUDA if on_gpu else LATTICE_BUDGET
+    step = LATTICE_PAIRS_CUDA if on_gpu else LATTICE_PAIRS
+
+    def exact(i, j):
+        t0 = time.perf_counter()
+        out = torch.cat([
+            _lattice_overlap(points, lo, hi, vol, inv, valid, i[c], j[c], thresh)
+            for c in torch.split(torch.arange(i.numel(), device=dev), step)])
+        if on_gpu:
+            torch.cuda.synchronize(dev)
+        counts["exact_s"] += time.perf_counter() - t0
+        return out
+
+    suppressed = torch.zeros(N, dtype=torch.bool, device=dev)
+    pos = 0
+    while pos < N:
+        rows = torch.nonzero(~suppressed[pos:]).flatten()[:ROW_BLOCK] + pos
+        if rows.numel() == 0:
+            break
+        i, j = _candidate_pairs(points, rout, rows)
+        live = ~suppressed[j]
+        i, j = i[live], j[live]
+        if dense:
+            sup = torch.zeros(i.numel(), dtype=torch.bool, device=dev)
+            amb = torch.ones(i.numel(), dtype=torch.bool, device=dev)
+        else:
+            ext = torch.clamp_min(torch.minimum(hi[i], hi[j]) - torch.maximum(lo[i], lo[j]), 0.0)
+            dc = torch.sqrt(torch.sum((points[i] - points[j]) ** 2, dim=-1))
+            denom = torch.minimum(vol[i], vol[j]) + 1e-10
+            ub = torch.minimum(_lens_volume_3d(rout[i], rout[j], dc),
+                               ext[:, 0] * ext[:, 1] * ext[:, 2]) / denom
+            lb = _lens_volume_3d(rin[i], rin[j], dc) / denom
+            sup = lb > thresh
+            amb = ~sup & ~(ub <= thresh)
+            # pairs the bounds decide as not suppressing leave the list
+            live = sup | amb
+            i, j, sup, amb = i[live], j[live], sup[live], amb[live]
+        keep, n_eval, n_rounds = _resolve(N, i, j, sup, amb,
+                                          lambda t: exact(i[t], j[t]), budget)
+        suppressed |= ~keep
+        counts["n_pairs"] += int(i.numel())
+        counts["n_eval_pairs"] += n_eval
+        counts["n_rounds"] += n_rounds
+        pos = int(rows[-1].item()) + 1
+    counts["n_survivors"] = int((~suppressed).sum().item())
+    if stats is not None:
+        stats.update(counts)
+    return ~suppressed

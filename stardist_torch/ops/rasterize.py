@@ -1,5 +1,6 @@
-"""Label-image rasterization of star polygons (counterpart of
-``stardist_tpu/ops/rasterize.py::rasterize_polygons`` / ``_raster2d_impl``).
+"""Label-image rasterization of star polygons and polyhedra (counterpart of
+``stardist_tpu/ops/rasterize.py::rasterize_polygons`` / ``_raster2d_impl``
+and ``rasterize_polyhedra`` / ``_raster3d_impl``).
 
 Splatting: every polygon tests a fixed square window around its centre
 (the atan2-wedge inside test of :func:`.polygon.points_in_polygons`) and a
@@ -7,6 +8,8 @@ scatter-max over the packed ``(order << 32) | label`` resolves the winner
 and its label per pixel in one pass, so "later in the rendering order wins"
 becomes a max (packed in int64, so the order values have no 2^15 limit).
 Plain torch ops on any device (the reference leaves this stage to XLA too).
+In 3D the window is a cube and the inside test is the barycentric face test
+of :func:`.polyhedron.points_in_polyhedra`.
 """
 from __future__ import annotations
 
@@ -14,9 +17,12 @@ import numpy as np
 import torch
 
 from .polygon import points_in_polygons
+from .polyhedron import points_in_polyhedra, polyhedron_face_inverses
 
 
-CHUNK = 1024  # polygons per scatter step (bounds the (chunk, window^2) temporaries)
+CHUNK = 1024   # polygons per scatter step (bounds the (chunk, window^2) temporaries)
+CHUNK_3D = 8   # polyhedra per scatter step (bounds the (chunk, window^3, 8) temporaries)
+CHUNK_3D_CUDA = 64  # the same on a GPU (fewer, larger launches)
 
 
 def raster_window(dmax, shape):
@@ -66,3 +72,55 @@ def rasterize_polygons(dist, points, shape, order_values, labels=None):
         vals = pk[:, None].expand_as(flat)
         img.scatter_reduce_(0, flat[inside], vals[inside], reduce="amax")
     return (img & 0xFFFFFFFF).to(torch.int32).view(H, W)
+
+
+def rasterize_polyhedra(dist, points, ray_dirs, faces, shape, order_values, labels=None,
+                        return_count=False):
+    """Per voxel, the polyhedron with the largest positive order value wins.
+
+    dist (N, R), points (N, 3), ray_dirs (R, 3), faces (F, 3), order_values
+    (N,) int (0 = never drawn); all tensors on one device. Each polyhedron
+    tests the cube of side 2*ceil(max dist)+4 (capped by the volume) around
+    its rounded centre. Returns (img, count): img int32 (D, H, W) on that
+    device holding the winner's ``labels[i]`` (or its order value when
+    ``labels`` is None), 0 for background; count, with ``return_count``,
+    the int32 number of drawn polyhedra covering each voxel, else None."""
+    dev = dist.device
+    D, H, W = (int(s) for s in shape)
+    N = dist.shape[0]
+    img = torch.zeros(D * H * W, dtype=torch.int64, device=dev)
+    cnt = torch.zeros(D * H * W, dtype=torch.int32, device=dev) if return_count else None
+    if N == 0:
+        return img.view(D, H, W).to(torch.int32), None if cnt is None else cnt.view(D, H, W)
+    dist = dist.to(torch.float32)
+    points = points.to(torch.float32)
+    order_values = order_values.to(dev, torch.int64)
+    labs = order_values if labels is None else labels.to(dev, torch.int64)
+    packed = (order_values << 32) | labs
+    window = 2 * int(np.ceil(float(dist.max().item()))) + 4
+    window = int(min(window, 2 * max(shape) + 4))
+    ar = torch.arange(window, dtype=torch.int64, device=dev)
+    chunk = CHUNK_3D_CUDA if dev.type == "cuda" else CHUNK_3D
+    for i0 in range(0, N, chunk):
+        d = dist[i0:i0 + chunk]
+        p = points[i0:i0 + chunk]
+        n = d.shape[0]
+        start = torch.round(p).to(torch.int64) - window // 2
+        zz, yy, xx = (start[:, k:k + 1] + ar[None] for k in range(3))   # (n, Wn)
+        q = torch.stack(torch.broadcast_tensors(
+            zz[:, :, None, None].float(), yy[:, None, :, None].float(),
+            xx[:, None, None, :].float()), dim=-1).reshape(n, -1, 3)
+        inv, valid = polyhedron_face_inverses(d, ray_dirs, faces)
+        inside = points_in_polyhedra(inv, valid, p, q) & (order_values[i0:i0 + n] > 0)[:, None]
+        in_img = (((zz >= 0) & (zz < D))[:, :, None, None]
+                  & ((yy >= 0) & (yy < H))[:, None, :, None]
+                  & ((xx >= 0) & (xx < W))[:, None, None, :]).reshape(n, -1)
+        inside = inside & in_img
+        flat = ((zz[:, :, None, None] * H + yy[:, None, :, None]) * W
+                + xx[:, None, None, :]).reshape(n, -1)[inside]
+        vals = packed[i0:i0 + n, None].expand(inside.shape)[inside]
+        img.scatter_reduce_(0, flat, vals, reduce="amax")
+        if cnt is not None:
+            cnt.scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    img = (img & 0xFFFFFFFF).to(torch.int32).view(D, H, W)
+    return img, None if cnt is None else cnt.view(D, H, W)

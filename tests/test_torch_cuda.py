@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from stardist_torch.matching import matching
-from stardist_torch.models import StarDist2D
+from stardist_torch.models import StarDist2D, StarDist3D
 from stardist_torch.ops import conv as tconv
 from stardist_torch.ops import pair_overlap as tpo
 
@@ -46,6 +46,30 @@ def test_conv_kernel_matches_plain(cuda_device, C, Cout, H, W, act):
     torch.cuda.synchronize()
     assert tconv.KERNEL.launches == n0 + 1
     ref = tconv.conv3x3_hwc_plain(x, w, b, act)
+    assert y.dtype == torch.bfloat16 and y.shape == ref.shape
+    # bf16 outputs of f32 sums taken in another order
+    scale = max(1.0, ref.float().abs().max().item())
+    assert (y.float() - ref.float()).abs().max().item() / scale < 1e-2
+
+
+# 3x3x3: C_in = 1 (padded to 8), 8 and 16; Cout 8 and 128; a ragged W of
+# 130 (more than one 128-voxel tile); D = 3 (every plane touches a face)
+CONV3D_SHAPES = [(1, 8, 3, 5, 130), (8, 128, 3, 7, 130), (16, 8, 3, 9, 130),
+                 (16, 128, 3, 4, 130), (8, 16, 5, 6, 17)]
+
+
+@pytest.mark.parametrize("C,Cout,D,H,W", CONV3D_SHAPES)
+@pytest.mark.parametrize("act", ["relu", "elu", "linear"])
+def test_conv3d_kernel_matches_plain(cuda_device, C, Cout, D, H, W, act):
+    rng = np.random.RandomState(C * Cout + H)
+    x = torch.from_numpy(rng.randn(D, H, W, C).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    w = torch.from_numpy((rng.randn(3, 3, 3, C, Cout) * 0.1).astype(np.float32)).to(cuda_device)
+    b = torch.from_numpy(rng.randn(Cout).astype(np.float32)).to(cuda_device)
+    n0 = tconv.KERNEL3D.launches
+    y = tconv.conv3x3x3_dhwc(x, w, b, act)
+    torch.cuda.synchronize()
+    assert tconv.KERNEL3D.launches == n0 + 1
+    ref = tconv.conv3x3x3_dhwc_plain(x, w, b, act)
     assert y.dtype == torch.bfloat16 and y.shape == ref.shape
     # bf16 outputs of f32 sums taken in another order
     scale = max(1.0, ref.float().abs().max().item())
@@ -111,3 +135,34 @@ def test_predict_instances_on_card_agrees_with_cpu(cuda_device):
     # bf16 convs on the card can flip borderline candidates
     assert matching(lab_cpu, lab, thresh=0.5).accuracy >= 0.95
     assert matching(lbl, lab, thresh=0.5).accuracy >= 0.8
+
+
+def _nuclei3d(shape, n, seed):
+    """Seeded non-overlapping balls, blurred, with noise (+ their labels)."""
+    from scipy.ndimage import gaussian_filter
+    rng = np.random.RandomState(seed)
+    lbl = np.zeros(shape, np.int32)
+    zz, yy, xx = np.mgrid[:shape[0], :shape[1], :shape[2]]
+    for k in range(1, n + 1):
+        r = rng.uniform(4, 7)
+        c = [rng.uniform(r, s - r) for s in shape]
+        mask = (zz - c[0]) ** 2 + (yy - c[1]) ** 2 + (xx - c[2]) ** 2 < r ** 2
+        if not (lbl[mask] > 0).any():
+            lbl[mask] = k
+    img = gaussian_filter((lbl > 0).astype(np.float32), 1.0)
+    img += 0.05 * rng.normal(size=shape).astype(np.float32)
+    return img.astype(np.float32), lbl
+
+
+def test_predict_instances_3d_on_card_agrees_with_cpu(cuda_device):
+    img, lbl = _nuclei3d((32, 64, 64), 20, 0)
+    gm = StarDist3D(None, "3D_demo", "models/examples", device=cuda_device)
+    n_conv = tconv.KERNEL3D.launches
+    lab, res = gm.predict_instances(img)
+    assert tconv.KERNEL3D.launches - n_conv == len(gm.net.conv_blocks())
+    cm = StarDist3D(None, "3D_demo", "models/examples", device="cpu")
+    lab_cpu, res_cpu = cm.predict_instances(img)
+    # bf16 convs on the card can flip borderline candidates
+    assert abs(len(res["prob"]) - len(res_cpu["prob"])) <= 1
+    assert matching(lab_cpu, lab, thresh=0.5).accuracy >= 0.9
+    assert matching(lbl, lab, thresh=0.1).accuracy >= 0.8
