@@ -40,9 +40,10 @@ def render_order(prob):
     return order
 
 
-def polygons_to_label(dist, points, shape, prob=None):
-    """Label image of star polygons. Tensors in -> int32 tensor on their
-    device; numpy in -> numpy int32."""
+def polygons_to_label(dist, points, shape, prob=None, out_dtype=torch.int32):
+    """Label image of star polygons. Tensors in -> a tensor on their device
+    (int32, or ``out_dtype=torch.uint16`` when there are fewer than 2^16 - 1
+    polygons); numpy in -> numpy int32."""
     as_numpy = not isinstance(dist, torch.Tensor)
     dist = torch.as_tensor(np.asarray(dist) if as_numpy else dist)
     dev = dist.device
@@ -53,6 +54,9 @@ def polygons_to_label(dist, points, shape, prob=None):
     assert dist.dim() == 2 and points.dim() == 2 and len(dist) == len(points)
     assert len(points) == len(prob) and points.shape[1] == 2 and prob.dim() == 1
 
+    if out_dtype == torch.uint16 and len(dist) >= 2 ** 16 - 1:
+        raise ValueError(f"{len(dist)} polygons do not fit uint16 labels")
     labels = torch.arange(len(dist), device=dev)
-    img = rasterize_polygons(dist, points, tuple(shape), render_order(prob), labels=labels)
+    img = rasterize_polygons(dist, points, tuple(shape), render_order(prob), labels=labels,
+                             out_dtype=torch.int32 if as_numpy else out_dtype)
     return img.cpu().numpy() if as_numpy else img

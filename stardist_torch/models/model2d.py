@@ -1,6 +1,7 @@
 """2D StarDist model (counterpart of ``stardist_tpu/models/model2d.py``)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.config import BaseConfig
@@ -89,18 +90,48 @@ class StarDist2D(StarDistBase):
         return non_maximum_suppression_sparse(dist, prob, points, nms_thresh=nms_thresh,
                                               verbose=verbose, stats=stats)
 
-    def _render_survivors(self, img_shape, disti, points, probi, return_labels=True):
-        """Rasterize the NMS survivors (on their device) and build the result
-        dict (numpy)."""
+    def _render_survivors(self, img_shape, disti, points, probi, return_labels=True,
+                          fetch=True):
+        """Rasterize the NMS survivors on their device, to uint16 when the
+        label count fits (as the reference's device path ships it), and
+        build the result dict. With ``fetch`` the labels come back as int32
+        numpy and the dict holds numpy ``dist``, ``coord``, ``points``
+        (int32) and ``prob``; without it the labels and ``dist``, ``points``,
+        ``prob`` stay tensors."""
         labels = None
         if return_labels:
-            labels = polygons_to_label(disti, points, prob=probi, shape=img_shape)
-            if isinstance(labels, torch.Tensor):
-                labels = labels.cpu().numpy()
+            small = len(probi) < 2 ** 16 - 1
+            labels = polygons_to_label(disti, points, img_shape, prob=probi,
+                                       out_dtype=torch.uint16 if small else torch.int32)
+        if not fetch:
+            return labels, dict(dist=disti, points=points, prob=probi)
+        if isinstance(labels, torch.Tensor):
+            labels = labels.cpu().numpy().astype(np.int32)
         disti, points, probi = (t.cpu().numpy() if isinstance(t, torch.Tensor) else t
                                 for t in (disti, points, probi))
         coord = dist_to_coord(disti, points)
-        return labels, dict(coord=coord, points=points, prob=probi)
+        return labels, dict(dist=disti, coord=coord, points=points.astype(np.int32), prob=probi)
+
+    def predict_instances_device(self, img, axes=None, normalizer=None, prob_thresh=None,
+                                 nms_thresh=None, b=2, verbose=False, fetch=True):
+        """Instance prediction with every stage on ``self.device`` and only
+        scalars read back by the host before the result (counts, the
+        largest dist); the counterpart of the reference's
+        ``predict_instances_device`` (model2d.py:485-654), single tile.
+
+        ``img`` is a numpy image (``axes``, ``normalizer`` and the padding
+        as in :meth:`predict_instances`) or a pre-staged tensor on
+        ``self.device``: already normalized, ``(Y, X)`` or ``(Y, X, C)``,
+        each spatial size divisible by the network stride.
+
+        Returns ``(labels, details)`` as :meth:`predict_instances` does;
+        with ``fetch=False`` the label image (uint16 when the label count
+        fits, else int32) and ``dist``/``points``/``prob`` stay tensors on
+        ``self.device``."""
+        if self.config.n_classes is not None:
+            raise NotImplementedError("multiclass prediction is not ported yet")
+        return self._predict_instances(img, axes, normalizer, prob_thresh, nms_thresh, None,
+                                       b, True, verbose, fetch=fetch)
 
     @property
     def _config_class(self):

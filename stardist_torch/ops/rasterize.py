@@ -3,21 +3,27 @@
 and ``rasterize_polyhedra`` / ``_raster3d_impl``).
 
 Splatting: every polygon tests a fixed square window around its centre
-(the atan2-wedge inside test of :func:`.polygon.points_in_polygons`) and a
-scatter-max over the packed ``(order << 32) | label`` resolves the winner
-and its label per pixel in one pass, so "later in the rendering order wins"
+and a max over the packed ``(order << 32) | label`` resolves the winner and
+its label per pixel in one pass, so "later in the rendering order wins"
 becomes a max (packed in int64, so the order values have no 2^15 limit).
-Plain torch ops on any device (the reference leaves this stage to XLA too).
+
+In 2D, :func:`rasterize_polygons` launches the tile kernel on CUDA tensors
+(:mod:`.raster_tiles`, ``csrc/raster_tiles.cu``: the wedge test by
+cross-product signs of the reference's TPU kernel) and runs
+:func:`rasterize_polygons_splat` on CPU tensors: the atan2-wedge inside test
+of :func:`.polygon.points_in_polygons` and a scatter-max, as the
+reference's ``_raster2d_impl`` does everywhere but on a TPU. The two tests
+can differ only for a pixel lying exactly on a ray.
 In 3D the window is a cube and the inside test is the barycentric face test
-of :func:`.polyhedron.points_in_polyhedra`.
+of :func:`.polyhedron.points_in_polyhedra` (plain torch on any device).
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .polygon import points_in_polygons
 from .polyhedron import points_in_polyhedra, polyhedron_face_inverses
+from .raster_tiles import rasterize_polygons_tiles_cuda, tile_window, unpack_labels
 
 
 CHUNK = 1024   # polygons per scatter step (bounds the (chunk, window^2) temporaries)
@@ -26,26 +32,40 @@ CHUNK_3D_CUDA = 64  # the same on a GPU (fewer, larger launches)
 
 
 def raster_window(dmax, shape):
-    """Splat window: 2*ceil(max dist)+4, capped by the image, rounded up to
-    a multiple of 16."""
-    window = 2 * int(np.ceil(float(dmax))) + 4
-    window = int(min(window, 2 * max(shape) + 4))
-    return -(-window // 16) * 16
+    """Splat window: the tile kernel's window (2*ceil(max dist)+4, capped by
+    the image) rounded up to a multiple of 16."""
+    return -(-tile_window(dmax, shape) // 16) * 16
 
 
-def rasterize_polygons(dist, points, shape, order_values, labels=None):
+def rasterize_polygons(dist, points, shape, order_values, labels=None,
+                       out_dtype=torch.int32):
     """Per pixel, the polygon with the largest positive order value wins.
 
     dist (N, R), points (N, 2), order_values (N,) int (0 = never drawn);
-    all tensors on one device. Returns an int32 (H, W) tensor on that
-    device: the winner's ``labels[i] + 1`` (or its order value when
-    ``labels`` is None), 0 for background."""
+    all tensors on one device. Returns an (H, W) tensor of ``out_dtype``
+    (torch.int32, or torch.uint16 when every pixel value fits, as the
+    reference's device path ships it) on that device: the winner's
+    ``labels[i] + 1`` (or its order value when ``labels`` is None), 0 for
+    background. CUDA tensors go through the tile kernel, CPU tensors
+    through the splat."""
+    if dist.is_cuda:
+        return rasterize_polygons_tiles_cuda(dist, points, shape, order_values, labels,
+                                             out_dtype=out_dtype)
+    if dist.device.type != "cpu":
+        raise RuntimeError(f"no raster for device {dist.device}")
+    return rasterize_polygons_splat(dist, points, shape, order_values, labels, out_dtype)
+
+
+def rasterize_polygons_splat(dist, points, shape, order_values, labels=None,
+                             out_dtype=torch.int32):
+    """:func:`rasterize_polygons` with the atan2-wedge inside test and a
+    scatter-max, in plain torch on any device."""
     dev = dist.device
     H, W = (int(s) for s in shape)
     N = dist.shape[0]
     img = torch.zeros(H * W, dtype=torch.int64, device=dev)
     if N == 0:
-        return img.view(H, W).to(torch.int32)
+        return unpack_labels(img, (H, W), out_dtype)
     dist = dist.to(torch.float32)
     points = points.to(torch.float32)
     order_values = order_values.to(dev, torch.int64)
@@ -71,7 +91,7 @@ def rasterize_polygons(dist, points, shape, order_values, labels=None):
         flat = (rr.long()[:, :, None] * W + cc.long()[:, None, :]).reshape(n, -1)
         vals = pk[:, None].expand_as(flat)
         img.scatter_reduce_(0, flat[inside], vals[inside], reduce="amax")
-    return (img & 0xFFFFFFFF).to(torch.int32).view(H, W)
+    return unpack_labels(img, (H, W), out_dtype)
 
 
 def rasterize_polyhedra(dist, points, ray_dirs, faces, shape, order_values, labels=None,
@@ -97,8 +117,7 @@ def rasterize_polyhedra(dist, points, ray_dirs, faces, shape, order_values, labe
     order_values = order_values.to(dev, torch.int64)
     labs = order_values if labels is None else labels.to(dev, torch.int64)
     packed = (order_values << 32) | labs
-    window = 2 * int(np.ceil(float(dist.max().item()))) + 4
-    window = int(min(window, 2 * max(shape) + 4))
+    window = tile_window(dist.max().item(), shape)
     ar = torch.arange(window, dtype=torch.int64, device=dev)
     chunk = CHUNK_3D_CUDA if dev.type == "cuda" else CHUNK_3D
     for i0 in range(0, N, chunk):

@@ -13,6 +13,8 @@ from stardist_torch.matching import matching
 from stardist_torch.models import StarDist2D, StarDist3D
 from stardist_torch.ops import conv as tconv
 from stardist_torch.ops import pair_overlap as tpo
+from stardist_torch.ops import raster_tiles as trt
+from stardist_torch.ops.rasterize import rasterize_polygons
 
 pytestmark = pytest.mark.cuda
 
@@ -166,3 +168,79 @@ def test_predict_instances_3d_on_card_agrees_with_cpu(cuda_device):
     assert abs(len(res["prob"]) - len(res_cpu["prob"])) <= 1
     assert matching(lab_cpu, lab, thresh=0.5).accuracy >= 0.9
     assert matching(lbl, lab, thresh=0.1).accuracy >= 0.8
+
+
+def _polygons(n, R, shape, seed, r_range=(4, 14), grid=None):
+    """Seeded star polygons, some crossing the image border: float centres,
+    or integer centres on a grid of ``grid`` (as predict_instances gives
+    them); seeded order values (a permutation, 1-based) and labels."""
+    rng = np.random.RandomState(seed)
+    if grid is None:
+        points = rng.uniform(-5, np.array(shape) + 5, (n, 2))
+    else:
+        points = grid * rng.randint(-3, np.array(shape) // grid + 3, (n, 2))
+    dist = rng.uniform(*r_range, (n, 1)) * rng.uniform(0.8, 1.2, (n, R))
+    order = rng.permutation(n) + 1
+    labels = rng.permutation(n)
+    return (torch.from_numpy(dist.astype(np.float32)), torch.from_numpy(points.astype(np.float32)),
+            torch.from_numpy(order), torch.from_numpy(labels))
+
+
+@pytest.mark.parametrize("field", ["float", "int", "dense", "large_values", "no_labels"])
+def test_raster_kernel_matches_plain(cuda_device, field):
+    shape = (300, 411)
+    n = {"dense": 4000}.get(field, 400)
+    dist, points, order, labels = _polygons(n, 32, shape, seed=len(field),
+                                            grid=None if field == "float" else 2)
+    if field == "large_values":       # order >= 2^15, labels >= 2^16: 64-bit packing
+        order, labels = order + 40000, labels + 70000
+    if field == "no_labels":
+        labels = None
+    order[::9] = 0                    # never drawn
+    args = [t.to(cuda_device) for t in (dist, points, order)]
+    lab = None if labels is None else labels.to(cuda_device)
+    n0 = trt.KERNEL.launches
+    got = rasterize_polygons(*args[:2], shape, args[2], lab)
+    torch.cuda.synchronize()
+    assert trt.KERNEL.launches == n0 + 1
+    ref = trt.rasterize_polygons_tiles_plain(*args[:2], shape, args[2], lab)
+    assert got.dtype == torch.int32 and got.shape == shape and got.is_cuda
+    assert (got > 0).sum().item() > 1000
+    assert torch.equal(got, ref)
+
+
+def test_raster_kernel_empty_field_and_uint16(cuda_device):
+    shape = (70, 90)
+    img = rasterize_polygons(torch.zeros(0, 32, device=cuda_device),
+                             torch.zeros(0, 2, device=cuda_device), shape,
+                             torch.zeros(0, dtype=torch.int64, device=cuda_device))
+    assert img.shape == shape and img.is_cuda and not img.any()
+    dist, points, order, labels = (t.to(cuda_device) for t in _polygons(60, 32, shape, seed=3))
+    u = rasterize_polygons(dist, points, shape, order, labels, out_dtype=torch.uint16)
+    i = rasterize_polygons(dist, points, shape, order, labels)
+    assert u.dtype == torch.uint16 and torch.equal(u.to(torch.int32), i)
+
+
+def test_predict_instances_device_equals_predict_instances_on_card(cuda_device):
+    img, _ = _nuclei((256, 320), 40, 0)
+    gm = StarDist2D(None, "2D_demo", "models/examples", device=cuda_device)
+    ref_lab, ref = gm.predict_instances(img)
+    n0 = trt.KERNEL.launches
+    lab, det = gm.predict_instances_device(img)
+    assert trt.KERNEL.launches == n0 + 1
+    np.testing.assert_array_equal(lab, ref_lab)
+    for k in ("points", "prob", "coord"):
+        np.testing.assert_array_equal(det[k], ref[k])
+    lab_d, det_d = gm.predict_instances_device(torch.from_numpy(img).to(cuda_device),
+                                               fetch=False)
+    assert lab_d.is_cuda and lab_d.dtype == torch.uint16 and det_d["dist"].is_cuda
+    np.testing.assert_array_equal(lab_d.cpu().numpy().astype(np.int32), ref_lab)
+
+
+def test_tiled_predict_instances_on_card(cuda_device):
+    img, lbl = _nuclei((512, 512), 150, 1)
+    gm = StarDist2D(None, "2D_demo", "models/examples", device=cuda_device)
+    lab1, _ = gm.predict_instances(img)
+    lab2, _ = gm.predict_instances(img, n_tiles=(2, 2))
+    assert matching(lab1, lab2, thresh=0.5).accuracy >= 0.99
+    assert matching(lbl, lab2, thresh=0.5).accuracy >= 0.8

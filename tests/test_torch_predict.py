@@ -90,7 +90,8 @@ def test_resizer_filter_points():
 
 
 def test_port_imports_no_jax():
-    """Importing stardist_torch and predicting leave jax, flax and
+    """Importing stardist_torch and predicting (predict_instances, tiled
+    and untiled, and predict_instances_device) leave jax, flax and
     stardist_tpu out of sys.modules."""
     code = textwrap.dedent("""
         import sys
@@ -101,6 +102,8 @@ def test_port_imports_no_jax():
         m = StarDist2D(None, "2D_demo", "models/examples", device="cpu")
         img = np.random.RandomState(0).rand(64, 64).astype(np.float32)
         m.predict_instances(img)
+        m.predict_instances(img, n_tiles=(2, 2))
+        m.predict_instances_device(img)
         bad = [k for k in sys.modules
                if k.split(".")[0] in ("jax", "jaxlib", "flax", "stardist_tpu")]
         assert not bad, bad

@@ -103,7 +103,8 @@ def test_ragged_volume_and_border(setup):
     from stardist_tpu.models.base import StarDistPadAndCropResizer as ResizerJax
     from stardist_torch.models.base import StarDistPadAndCropResizer
     for b in (2, 0, ((1, 3), (0, 2), (4, 1))):
-        x, axes, r = tm._predict_setup(img, None, None, None)
+        x, axes, r, n_tiles = tm._predict_setup(img, None, None, None)
+        assert n_tiles == (1, 1, 1, 1)
         rj = ResizerJax(grid=dict(zip("ZYX", jm.config.grid)))
         xj = rj.before(img[..., None], "ZYXC", tm._axes_div_by("ZYXC"))
         assert np.array_equal(x, xj)
