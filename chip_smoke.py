@@ -1,25 +1,33 @@
 """Smoke run of stardist_torch on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases bcdefghijk]
 
 Phases (each prints one line; any failed check exits non-zero):
   (a) the card's name and power limit; build the four CUDA kernels from
       stardist_torch/csrc (one nvcc each, all at once) and time the builds;
+      with (b) or (f), the conv kernels' registers and spills, from a
+      second compile of their sources with ptxas's report, made in the same
+      pool;
   (b) conv kernel vs its plain version at every layer shape of the
       full-width StarDist 2D forward (Config2D() defaults) on a 4096^2
-      image, with times;
+      image; per shape and in total: the kernel's time, the cuDNN yardstick
+      (one bf16 channels-last F.conv2d call), the plain version's, the bound
+      (the larger of FLOPs over the bf16 peak and bytes over the HBM rate)
+      and the kernel's share of it;
   (c) pair kernel vs its plain version on 10^5 seeded random polygon pairs
-      at S = 8 and S = 16: results must be exactly equal;
+      at S = 8 and S = 16: results must be exactly equal; times and bound;
   (d) the full-width forward at 4096^2 with seeded random weights, kernel
       path vs plain path;
   (e) StarDist2D(None, "2D_demo", "models/examples").predict_instances on a
       synthetic nuclei field of 2048^2 on the card: stage times, counts,
       AP@0.5 (StarDist's matching accuracy) against the field's ground truth,
-      launch counts of the conv, pair and raster kernels; then 1024^2 on the
-      card against the same call on the CPU;
+      launch counts of the conv, pair and raster kernels, and the pair
+      kernel's bound for the call's exact pairs; then 1024^2 on the card
+      against the same call on the CPU;
   (f) conv3d kernel vs its plain version at every layer shape of the
       full-width StarDist 3D forward (Config3D(grid=(1, 2, 2)), 96 rays,
-      depth 2, 32 filters) on a 64x512x512 volume, with times;
+      depth 2, 32 filters) on a 64x512x512 volume; times, the cuDNN
+      yardstick (F.conv3d) and the bound, as in (b);
   (g) that full-width 3D forward with seeded random weights, kernel path
       vs plain path;
   (h) StarDist3D(None, "3D_demo", "models/examples").predict_instances on
@@ -31,27 +39,34 @@ Phases (each prints one line; any failed check exits non-zero):
       4096^2 bench-shaped field, ~7k polygons, and a dense 2048^2 field of
       60k overlapping ones): labels must be exactly equal; times of the
       kernel, the plain version and the atan2 splat (the CUDA raster before
-      the kernel), by CUDA events;
+      the kernel), by CUDA events, and the bound of the kernel's work
+      counted from the field;
   (j) StarDist2D.predict_instances_device (2D_demo, 2048^2): labels and
       survivors must equal predict_instances on the card exactly, for a
       numpy and a pre-staged CUDA tensor input; walls with fetch=True and
       fetch=False, stage times, the host syncs of one call
       (torch.cuda.set_sync_debug_mode) and the kernels' launch counts; then
       the median walls of 5 rounds of predict_instances and the device path
-      (fetch=True, fetch=False) called in turn;
+      (fetch=True, fetch=False) called in turn, with their stage times;
   (k) tiled predict_instances (2D_demo) on the 4096^2 synthetic field,
-      n_tiles=(2, 2) against (1, 1): matching accuracy >= 0.99, walls (and
-      their medians over 3 rounds in turn), launch counts, and where the
+      n_tiles=(2, 2) against (1, 1): matching accuracy >= 0.99, walls and
+      stage times (forward, extract, NMS, raster; and their medians over 3
+      rounds in turn), launch counts, and where the
       two differ: the differing pixels and survivors, in all and within
       the tiles' overlap band around a seam, and the dense prediction's
       largest differences, tiled against untiled.
 The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}. With --phases, only (a) and the named phases
+run (e.g. --phases k to time the tiled call alone), and neither line is
+printed.
 
 Imports torch, numpy, scipy and stardist_torch only (never JAX).
 """
+import argparse
 import ctypes
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -72,6 +87,10 @@ E2E3D_SHAPE = (64, 256, 256)   # 3D predict_instances field on the card, (h)
 CMP3D_SHAPE = (32, 96, 96)     # card vs CPU comparison crop, (h)
 RASTER_FIELDS = ((4096, 7000), (2048, 60_000))  # (i): (image side, polygons)
 TILED_SIZE = 4096                # (k)
+ALL_PHASES = "bcdefghijk"        # (a) runs always
+# one H100 SXM (NVIDIA's data sheet, dense, at the 700 W limit): bf16 tensor
+# cores, f32 outside them, HBM3
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
 
 def synthetic_nuclei(shape, seed, r_range=(7, 14), density=6e-4):
@@ -147,16 +166,49 @@ def walls_ms(fns, rounds):
     """Host-clock walls (ms) of warm calls, each ended by a synchronize: the
     callables of ``fns`` (name -> fn) in turn, ``rounds`` times, so that
     slow drifts of the card or the host hit every one alike. Returns
-    name -> "median (min-max) ms"."""
+    name -> "median (min-max) ms", followed, for a call that returns
+    (labels, details) with ``details["timings_s"]``, by the median of each
+    stage."""
     walls = {name: [] for name in fns}
+    stages = {name: [] for name in fns}
     for _ in range(rounds):
         for name, fn in fns.items():
             t0 = time.perf_counter()
-            fn()
+            out = fn()
             torch.cuda.synchronize()
             walls[name].append((time.perf_counter() - t0) * 1e3)
-    return {name: f"{np.median(w):.1f} ({min(w):.1f}-{max(w):.1f}) ms"
-            for name, w in walls.items()}
+            if isinstance(out, tuple) and isinstance(out[-1], dict) and "timings_s" in out[-1]:
+                stages[name].append(out[-1]["timings_s"])
+
+    def line(name):
+        w, st = walls[name], stages[name]
+        text = f"{np.median(w):.1f} ({min(w):.1f}-{max(w):.1f}) ms"
+        if st:
+            text += " [" + ", ".join(f"{k} {np.median([t[k] for t in st]) * 1e3:.1f}"
+                                     for k in st[0]) + " ms]"
+        return text
+    return {name: line(name) for name in fns}
+
+
+def ptxas_report(kernel, cuda_build):
+    """Registers per thread (range over the template instances) and spill
+    bytes of ``kernel``'s source, read from ptxas's report (-Xptxas -v) of a
+    compile of it made here, in this run (the library the port loads is
+    built without the report)."""
+    import re
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = cuda_build.BUILD_DIR / f"ptxas_{kernel.source.stem}.{os.getpid()}.so"
+    cmd = [cuda_build.nvcc_path(), *kernel.flags, "-Xptxas", "-v", "-o", str(out),
+           str(kernel.source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out.unlink(missing_ok=True)
+    check(proc.returncode == 0, f"nvcc -Xptxas -v failed for {kernel.source.name}")
+    log = proc.stdout + proc.stderr
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    spill = sum(int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log))
+    check(len(regs) > 0, f"no ptxas report for {kernel.source.name}")
+    return f"{len(regs)} instances, {min(regs)}-{max(regs)} registers, {spill} spill bytes"
 
 
 def check(cond, msg):
@@ -164,10 +216,50 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
+def bound(ops, nbytes, peak):
+    """The least time (ms) the card could take for work of ``ops``
+    operations at ``peak`` per second and ``nbytes`` moved at the HBM rate:
+    (ms, "operations" or "bytes", whichever sets it)."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def conv_bound(shape, Cout):
+    """Bound of one SAME 3x3 (3x3x3) conv on channels-last bf16 ``shape``
+    (*sp, C) -> Cout: 2 * taps * C * Cout FLOPs per output pixel on the
+    bf16 tensor cores; input, output and weights in bf16 (bias f32), each
+    moved once."""
+    *sp, C = shape
+    npix, taps = int(np.prod(sp)), 3 ** len(sp)
+    return bound(2 * taps * C * Cout * npix,
+                 2 * npix * (C + Cout) + 2 * taps * C * Cout + 4 * Cout, PEAK_BF16)
+
+
+def library_conv_ms(xs, w, b):
+    """The yardstick: one cuDNN call, F.conv2d / F.conv3d on the same bf16
+    input in channels-last memory format, with bf16 weights and bias and
+    cudnn.benchmark on (bias only: the activation is a second call). Layout
+    changes are made before the timed region; the port never calls it."""
+    import torch.nn.functional as F
+    nd = xs.dim() - 1
+    fmt = torch.channels_last if nd == 2 else torch.channels_last_3d
+    x = xs.movedim(-1, 0)[None].contiguous(memory_format=fmt)        # (1, C, *sp)
+    wt = w.to(torch.bfloat16).permute(nd + 1, nd, *range(nd)).contiguous(memory_format=fmt)
+    bt = b.to(torch.bfloat16)
+    conv = F.conv2d if nd == 2 else F.conv3d
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        return cuda_ms(lambda: conv(x, wt, bt, padding=1), warmup=2, iters=5)
+    finally:
+        torch.backends.cudnn.benchmark = prev
+
+
 def conv_layers_vs_plain(net, x, dev, kernel_fn, plain_fn):
     """Kernel vs plain at every conv layer shape of ``net``'s forward on x
-    (shapes found with forward hooks): checks each, times each. Returns
-    (max abs err, forward convs ms kernel, ms plain, per-shape strings)."""
+    (shapes found with forward hooks): checks each, times each beside the
+    cuDNN yardstick and its bound. Returns (per-shape dicts, totals dict);
+    the totals weight each shape by its count in the forward."""
     shapes = {}
 
     def hook(mod, args, out):
@@ -180,7 +272,7 @@ def conv_layers_vs_plain(net, x, dev, kernel_fn, plain_fn):
         h.remove()
     torch.cuda.synchronize()
     g = torch.Generator(device=dev).manual_seed(1)
-    err, ms, plain_ms, rows = 0.0, 0.0, 0.0, []
+    rows = []
     for (shape, Cout, act), (mod, count) in shapes.items():
         xs = torch.rand(*shape, device=dev, generator=g).to(torch.bfloat16)
         y = kernel_fn(xs, mod.weight, mod.bias, act)
@@ -191,26 +283,43 @@ def conv_layers_vs_plain(net, x, dev, kernel_fn, plain_fn):
         check(e / scale < CONV_TOL,
               f"conv kernel disagrees at {shape}->{Cout}: {e} (scale {scale})")
         del y, ref
-        t_k = cuda_ms(lambda: kernel_fn(xs, mod.weight, mod.bias, act))
-        t_p = cuda_ms(lambda: plain_fn(xs, mod.weight, mod.bias, act))
-        err = max(err, e)
-        ms += count * t_k
-        plain_ms += count * t_p
-        rows.append("x".join(map(str, shape[:-1])) + f":{shape[-1]}->{Cout}x{count} "
-                    f"{t_k:.3f}/{t_p:.3f}ms")
+        b_ms, b_by = conv_bound(shape, Cout)
+        rows.append(dict(
+            shape=shape, Cout=Cout, count=count, err=e, bound_ms=b_ms, bound_by=b_by,
+            ms=cuda_ms(lambda: kernel_fn(xs, mod.weight, mod.bias, act)),
+            library_ms=library_conv_ms(xs, mod.weight, mod.bias),
+            plain_ms=cuda_ms(lambda: plain_fn(xs, mod.weight, mod.bias, act))))
         del xs
-    return err, ms, plain_ms, rows
+    tot = {k: sum(r["count"] * r[k] for r in rows)
+           for k in ("ms", "library_ms", "plain_ms", "bound_ms")}
+    by_ops = sum(r["count"] * r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+    tot["bound_by"] = "operations" if 2 * by_ops >= tot["bound_ms"] else "bytes"
+    tot["err"] = max(r["err"] for r in rows)
+    return rows, tot
+
+
+def conv_report(tag, what, rows, tot):
+    """One line: per shape kernel / cuDNN / plain ms, the bound and the
+    kernel's share of it; then the forward's totals."""
+    per = "; ".join(
+        "x".join(map(str, r["shape"][:-1])) + f":{r['shape'][-1]}->{r['Cout']}x{r['count']} "
+        f"{r['ms']:.3f}/{r['library_ms']:.3f}/{r['plain_ms']:.3f} ms, bound "
+        f"{r['bound_ms']:.3f} ms ({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f}% of bound"
+        for r in rows)
+    print(f"({tag}) {what} kernel vs plain: {len(rows)} layer shapes ok, max_abs_err "
+          f"{tot['err']:.3e}; convs of the forward: kernel {tot['ms']:.3f} ms, cuDNN bf16 "
+          f"channels-last {tot['library_ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, bound "
+          f"{tot['bound_ms']:.3f} ms ({tot['bound_by']}), kernel at "
+          f"{100 * tot['bound_ms'] / tot['ms']:.1f}% of bound; per shape "
+          f"kernel/cuDNN/plain: {per}", flush=True)
 
 
 def phase_b(net, dev, conv):
     """Conv kernel vs plain at the full-width forward's layer shapes."""
     x = torch.rand(FWD_SIZE, FWD_SIZE, 1, device=dev)
-    err, ms, plain_ms, rows = conv_layers_vs_plain(net, x, dev, conv.conv3x3_hwc,
-                                                   conv.conv3x3_hwc_plain)
-    print(f"(b) conv kernel vs plain: {len(rows)} layer shapes ok, max_abs_err {err:.3e}, "
-          f"full-width forward convs {ms:.2f} ms kernel / {plain_ms:.2f} ms plain; "
-          + "; ".join(rows), flush=True)
-    return err, ms, plain_ms
+    rows, tot = conv_layers_vs_plain(net, x, dev, conv.conv3x3_hwc, conv.conv3x3_hwc_plain)
+    conv_report("b", "conv", rows, tot)
+    return tot
 
 
 def random_pairs(P, R, dev, seed):
@@ -224,6 +333,25 @@ def random_pairs(P, R, dev, seed):
     return d_r, p_r, d_c, p_c, lo, (hi - lo).clamp_min(0.0)
 
 
+def inside_test_ops(R):
+    """f32 operations of one inside test of a point against a star polygon
+    of R rays, as the function needs it: the wedge found by ceil(log2 R)
+    cross-product sign tests (2 products and a difference each), then the
+    point's offset from the centre (2) and one edge test (11: the edge, the
+    two cross products and their product)."""
+    return 3 * math.ceil(math.log2(R)) + 13
+
+
+def pair_bound(P, R, S):
+    """Bound of the pair kernel's function: per pair, S * S samples (4
+    flops for a sample's coordinates), each tested against both polygons
+    (:func:`inside_test_ops`, plus the wedge's two vertices, 4 products), at
+    the f32 rate; the (2R + 8) f32 inputs read once and the f32 result
+    written once."""
+    return bound(P * S * S * (2 * (inside_test_ops(R) + 4) + 4), P * ((2 * R + 8) * 4 + 4),
+                 PEAK_F32)
+
+
 def phase_c(dev, po):
     args = random_pairs(N_PAIRS, 32, dev, 7)
     out = {}
@@ -235,10 +363,12 @@ def phase_c(dev, po):
         check(n_diff == 0, f"pair kernel differs from plain on {n_diff} pairs at S={S}")
         out[S] = (cuda_ms(lambda: po.pair_frac(*args, S=S)),
                   cuda_ms(lambda: po.pair_frac_plain(*args, S=S), iters=1),
-                  float(got.mean().item()), (got - ref).abs().max().item())
+                  float(got.mean().item()), (got - ref).abs().max().item(),
+                  *pair_bound(N_PAIRS, 32, S))
     print(f"(c) pair kernel vs plain on {N_PAIRS} pairs: exact at S=8 and S=16; "
-          + "; ".join(f"S={S}: {k:.3f} ms kernel / {p:.1f} ms plain, mean frac {m:.4f}"
-                      for S, (k, p, m, _) in out.items()), flush=True)
+          + "; ".join(f"S={S}: {k:.3f} ms kernel / {p:.1f} ms plain, bound {b:.4f} ms ({by}), "
+                      f"{100 * b / k:.1f}% of bound, mean frac {m:.4f}"
+                      for S, (k, p, m, _, b, by) in out.items()), flush=True)
     return out
 
 
@@ -297,12 +427,14 @@ def phase_e(dev, kernels, matching, StarDist2D):
     check(ap >= 0.95, f"AP@0.5 {ap} < 0.95")
     t = details["timings_s"]
     c = details["nms_counters"]
+    b_pair, b_pair_by = pair_bound(c["n_eval_pairs"], model.config.n_rays, 8)
     print(f"(e) predict_instances {E2E_SIZE}^2 on the card: wall {wall * 1e3:.1f} ms = forward "
           f"{t['forward'] * 1e3:.1f} + extract {t['extract'] * 1e3:.1f} + nms "
           f"{t['nms'] * 1e3:.1f} + raster {t['raster'] * 1e3:.1f} ms (+ host setup); "
           f"{c['n_candidates']} candidates, {c['n_pairs']} bbox pairs, {c['n_eval_pairs']} "
           f"exact pairs in {c['n_rounds']} rounds, {len(details['prob'])} objects "
-          f"({int(lbl.max())} true), AP@0.5 {ap:.4f}; launches {launches}", flush=True)
+          f"({int(lbl.max())} true), AP@0.5 {ap:.4f}; launches {launches}; the pair kernel's "
+          f"bound for these exact pairs at S=8: {b_pair:.4f} ms ({b_pair_by})", flush=True)
 
     img1, _ = synthetic_nuclei((CMP_SIZE, CMP_SIZE), seed=123)
     lab_gpu, _ = model.predict_instances(img1)
@@ -320,12 +452,10 @@ def phase_e(dev, kernels, matching, StarDist2D):
 def phase_f(net3, dev, conv):
     """conv3d kernel vs plain at the full-width 3D forward's layer shapes."""
     x = torch.rand(*FWD3D_SHAPE, 1, device=dev)
-    err, ms, plain_ms, rows = conv_layers_vs_plain(net3, x, dev, conv.conv3x3x3_dhwc,
-                                                   conv.conv3x3x3_dhwc_plain)
-    print(f"(f) conv3d kernel vs plain: {len(rows)} layer shapes ok, max_abs_err {err:.3e}, "
-          f"full-width 3D forward convs {ms:.2f} ms kernel / {plain_ms:.2f} ms plain "
-          f"(per shape kernel/plain); " + "; ".join(rows), flush=True)
-    return err, ms, plain_ms
+    rows, tot = conv_layers_vs_plain(net3, x, dev, conv.conv3x3x3_dhwc,
+                                     conv.conv3x3x3_dhwc_plain)
+    conv_report("f", "conv3d", rows, tot)
+    return tot
 
 
 def phase_g(net3, dev):
@@ -407,6 +537,29 @@ def polygon_field(n, size, seed, n_rays=32, r_range=(7, 14)):
             rng.permutation(n) + 1, rng.permutation(n))
 
 
+def raster_bound(rt, d, p, shape, o, lab):
+    """Bound of the raster kernel's function on this field, counted from its
+    data: every drawn polygon tests the pixels of its bounding box (its
+    longest ray about its centre) that lie in the image and in its splat
+    window, one inside test each (:func:`inside_test_ops`), after 2R
+    products for its vertices, at the f32 rate; the inputs read once and
+    the int32 label image written once."""
+    H, W = shape
+    N, R = d.shape
+    window = rt.tile_window(d.max().item(), shape)
+    reach, centre = d.float().amax(1), p.float()
+    origin = torch.round(centre).long() - window // 2
+    side = []
+    for ax, size in ((0, H), (1, W)):
+        lo = torch.maximum(torch.ceil(centre[:, ax] - reach).long(), origin[:, ax].clamp_min(0))
+        hi = torch.minimum(torch.floor(centre[:, ax] + reach).long(),
+                           (origin[:, ax] + window).clamp_max(size) - 1)
+        side.append((hi - lo + 1).clamp_min(0))
+    pixels = int((side[0] * side[1] * (o > 0)).sum().item())
+    nbytes = sum(t.numel() * t.element_size() for t in (d, p, o, lab)) + H * W * 4
+    return bound(pixels * inside_test_ops(R) + N * 2 * R, nbytes, PEAK_F32)
+
+
 def phase_i(dev, rt, splat):
     """Raster kernel vs its plain version (exact) and the atan2 splat."""
     out = []
@@ -439,12 +592,16 @@ def phase_i(dev, rt, splat):
         t_call = cuda_ms(lambda: rt.rasterize_polygons_tiles_cuda(d, p, shape, o, lab), iters=10)
         t_plain = cuda_ms(lambda: rt.rasterize_polygons_tiles_plain(d, p, shape, o, lab), iters=1)
         t_splat = cuda_ms(lambda: splat(d, p, shape, o, lab), iters=1)
+        b_ms, b_by = raster_bound(rt, d, p, shape, o, lab)
         out.append(dict(size=size, n=n, n_diff=n_diff, err=err, ms=t_call, kernel_ms=t_kern,
-                        plain_ms=t_plain, splat_ms=t_splat))
+                        plain_ms=t_plain, splat_ms=t_splat, bound_ms=b_ms, bound_by=b_by))
         print(f"(i) raster {size}^2, {n} polygons (window {window}, {fg} foreground pixels): "
               f"kernel == plain ({n_diff} differing pixels; {n_splat} differ from the atan2 "
               f"splat); call {t_call:.3f} ms (kernel + memset alone {t_kern:.3f} ms), plain "
-              f"{t_plain:.2f} ms, atan2 splat {t_splat:.2f} ms", flush=True)
+              f"{t_plain:.2f} ms, atan2 splat {t_splat:.2f} ms; bound of the function on "
+              f"this field {b_ms:.4f} ms ({b_by}), kernel + memset at "
+              f"{100 * b_ms / t_kern:.1f}% of it",
+              flush=True)
         del feats, pts, origin, packed, img, got
     return out
 
@@ -575,25 +732,34 @@ def phase_k(dev, kernels, matching, StarDist2D):
     walls = walls_ms({"n_tiles=(2, 2)": lambda: model.predict_instances(img, n_tiles=(2, 2)),
                       "n_tiles=(1, 1)": lambda: model.predict_instances(img, n_tiles=(1, 1))},
                      rounds=3)
+    def split(det):
+        return ", ".join(f"{k} {v * 1e3:.1f}" for k, v in det["timings_s"].items()) + " ms"
+
     print(f"(k) predict_instances {TILED_SIZE}^2 on the card, n_tiles=(2, 2) vs (1, 1): "
           f"matching accuracy {acc:.4f}, labels equal: {np.array_equal(lab1, lab2)} "
           f"({n_diff} pixels differ), objects {len(det2['prob'])} / {len(det1['prob'])} "
-          f"({int(lbl.max())} true), tiled AP@0.5 {ap:.4f}; wall tiled {wall2 * 1e3:.1f} ms, "
-          f"untiled {wall1 * 1e3:.1f} ms; tile overlap {model._axes_tile_overlap('YX')}; "
+          f"({int(lbl.max())} true), tiled AP@0.5 {ap:.4f}; wall tiled {wall2 * 1e3:.1f} ms "
+          f"[{split(det2)}], untiled {wall1 * 1e3:.1f} ms [{split(det1)}]; tile overlap "
+          f"{model._axes_tile_overlap('YX')}; "
           f"{seams}; "
           f"launches (tiled call) {launches}; 3 rounds of warm calls in turn, median "
           f"(min-max): {walls}", flush=True)
     return launches
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=ALL_PHASES,
+                    help="the phases to run after (a), e.g. 'k'; the kernels' record and "
+                         "the ok line need all of them (default: %(default)s)")
+    phases = set(ap.parse_args(argv).phases)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from stardist_torch.matching import matching
     from stardist_torch.models import Config2D, Config3D, StarDist2D, StarDist3D
     from stardist_torch.models.unet import StarDistNet
-    from stardist_torch.ops import conv, pair_overlap as po, raster_tiles as rt
+    from stardist_torch.ops import conv, cuda_build, pair_overlap as po, raster_tiles as rt
     from stardist_torch.ops.rasterize import rasterize_polygons_splat
 
     torch.backends.cudnn.allow_tf32 = False        # plain convs in full f32
@@ -605,61 +771,78 @@ def main():
     print(smi, flush=True)
     t0 = time.perf_counter()
     kernels = {"conv": conv.KERNEL, "pair": po.KERNEL, "raster": rt.KERNEL}
-    builds = (conv.KERNEL, po.KERNEL, conv.KERNEL3D, rt.KERNEL)
-    with ThreadPoolExecutor(len(builds)) as pool:      # one nvcc per source, all at once
-        list(pool.map(lambda k: k.build(), builds))
+    jobs = [k.build for k in (conv.KERNEL, po.KERNEL, conv.KERNEL3D, rt.KERNEL)]
+    if phases & set("bf"):
+        jobs += [lambda k=k: ptxas_report(k, cuda_build) for k in (conv.KERNEL, conv.KERNEL3D)]
+    with ThreadPoolExecutor(len(jobs)) as pool:        # one nvcc per compile, all at once
+        done = list(pool.map(lambda job: job(), jobs))
+    ptxas = (f"; ptxas, compiled again in this run: conv {done[4]}; conv3d {done[5]}"
+             if len(done) > 4 else "")
     print(f"(a) {torch.cuda.get_device_name(0)} [{smi}]; torch {torch.__version__} "
           f"CUDA {torch.version.cuda}; kernels built in {time.perf_counter() - t0:.1f} s "
           f"(conv {conv.KERNEL.build_seconds:.1f} s, pair {po.KERNEL.build_seconds:.1f} s, "
           f"conv3d {conv.KERNEL3D.build_seconds:.1f} s, raster "
-          f"{rt.KERNEL.build_seconds:.1f} s)", flush=True)
+          f"{rt.KERNEL.build_seconds:.1f} s){ptxas}", flush=True)
 
-    net = StarDistNet(Config2D(grid=(2, 2)), dtype=torch.bfloat16)
-    net.init_weights(torch.Generator().manual_seed(0))
-    net.to(dev)
-    conv_err, conv_ms, conv_plain_ms = phase_b(net, dev, conv)
-    pair = phase_c(dev, po)
-    phase_d(net, dev)
-    launches = phase_e(dev, kernels, matching, StarDist2D)
-    del net
-    torch.cuda.empty_cache()
+    if phases & set("bcde"):
+        net = StarDistNet(Config2D(grid=(2, 2)), dtype=torch.bfloat16)
+        net.init_weights(torch.Generator().manual_seed(0))
+        net.to(dev)
+        conv2d = phase_b(net, dev, conv) if "b" in phases else None
+        pair = phase_c(dev, po) if "c" in phases else None
+        if "d" in phases:
+            phase_d(net, dev)
+        launches = phase_e(dev, kernels, matching, StarDist2D) if "e" in phases else None
+        del net
+        torch.cuda.empty_cache()
 
-    net3 = StarDistNet(Config3D(grid=(1, 2, 2)), dtype=torch.bfloat16)
-    net3.init_weights(torch.Generator().manual_seed(0))
-    net3.to(dev)
-    conv3d_err, conv3d_ms, conv3d_plain_ms = phase_f(net3, dev, conv)
-    phase_g(net3, dev)
-    del net3
-    torch.cuda.empty_cache()
-    launches["conv3d"] = phase_h(dev, conv, matching, StarDist3D)
-    torch.cuda.empty_cache()
+    if phases & set("fg"):
+        net3 = StarDistNet(Config3D(grid=(1, 2, 2)), dtype=torch.bfloat16)
+        net3.init_weights(torch.Generator().manual_seed(0))
+        net3.to(dev)
+        conv3d = phase_f(net3, dev, conv) if "f" in phases else None
+        if "g" in phases:
+            phase_g(net3, dev)
+        del net3
+        torch.cuda.empty_cache()
+    if "h" in phases:
+        launches3d = phase_h(dev, conv, matching, StarDist3D)
+        torch.cuda.empty_cache()
 
-    raster = phase_i(dev, rt, rasterize_polygons_splat)
-    phase_j(dev, kernels, StarDist2D)
-    phase_k(dev, kernels, matching, StarDist2D)
+    raster = phase_i(dev, rt, rasterize_polygons_splat) if "i" in phases else None
+    if "j" in phases:
+        phase_j(dev, kernels, StarDist2D)
+    if "k" in phases:
+        phase_k(dev, kernels, matching, StarDist2D)
+    if phases != set(ALL_PHASES):
+        return 0
+    launches["conv3d"] = launches3d
+
+    def conv_row(name, source, replaces, n, tot):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": n, "max_abs_err": tot["err"], "ms": tot["ms"],
+                "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+                "bound_by": tot["bound_by"], "library_ms": tot["library_ms"]}
 
     record = {"kernels": [
-        {"name": "conv3x3_bf16_hwc", "route": "cuda",
-         "source": "stardist_torch/csrc/conv3x3.cu",
-         "replaces": "stardist_tpu/ops/conv_pallas.py:393",
-         "launches": launches["conv"], "max_abs_err": conv_err,
-         "ms": conv_ms, "plain_ms": conv_plain_ms},
+        conv_row("conv3x3_bf16_hwc", "stardist_torch/csrc/conv3x3.cu",
+                 "stardist_tpu/ops/conv_pallas.py:393", launches["conv"], conv2d),
         {"name": "pair_frac_f32", "route": "cuda",
          "source": "stardist_torch/csrc/pair_overlap.cu",
          "replaces": "stardist_tpu/ops/pair_overlap.py:82",
          "launches": launches["pair"], "max_abs_err": max(pair[8][3], pair[16][3]),
-         "ms": pair[16][0], "plain_ms": pair[16][1]},
-        {"name": "conv3x3x3_bf16_dhwc", "route": "cuda",
-         "source": "stardist_torch/csrc/conv3x3x3.cu",
-         "replaces": "stardist_tpu/ops/conv_pallas.py:574",
-         "launches": launches["conv3d"], "max_abs_err": conv3d_err,
-         "ms": conv3d_ms, "plain_ms": conv3d_plain_ms},
+         "ms": pair[16][0], "plain_ms": pair[16][1], "bound_ms": pair[16][4],
+         "bound_by": pair[16][5], "library_ms": None},
+        conv_row("conv3x3x3_bf16_dhwc", "stardist_torch/csrc/conv3x3x3.cu",
+                 "stardist_tpu/ops/conv_pallas.py:574", launches["conv3d"], conv3d),
         {"name": "raster_tiles_i64", "route": "cuda",
          "source": "stardist_torch/csrc/raster_tiles.cu",
          "replaces": "stardist_tpu/ops/raster_pallas.py:80",
          "launches": launches["raster"], "max_abs_err": max(r["err"] for r in raster),
          "mismatched_pixels": sum(r["n_diff"] for r in raster),
-         "ms": raster[0]["ms"], "plain_ms": raster[0]["plain_ms"]},
+         "ms": raster[0]["ms"], "plain_ms": raster[0]["plain_ms"],
+         "bound_ms": raster[0]["bound_ms"], "bound_by": raster[0]["bound_by"],
+         "library_ms": None},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..ops.rasterize import rasterize_polygons
+from ..utils import as_tensor_on
 
 
 def ray_angles(n_rays=32):
@@ -40,12 +41,13 @@ def render_order(prob):
     return order
 
 
-def polygons_to_label(dist, points, shape, prob=None, out_dtype=torch.int32):
+def polygons_to_label(dist, points, shape, prob=None, out_dtype=torch.int32, device="cuda"):
     """Label image of star polygons. Tensors in -> a tensor on their device
     (int32, or ``out_dtype=torch.uint16`` when there are fewer than 2^16 - 1
-    polygons); numpy in -> numpy int32."""
+    polygons); numpy in -> numpy int32, drawn on ``device`` (the card unless
+    the caller passes ``device="cpu"``)."""
     as_numpy = not isinstance(dist, torch.Tensor)
-    dist = torch.as_tensor(np.asarray(dist) if as_numpy else dist)
+    dist = as_tensor_on(dist, device)
     dev = dist.device
     points = torch.as_tensor(points, device=dev)
     if prob is None:

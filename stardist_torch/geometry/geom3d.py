@@ -13,21 +13,23 @@ import torch
 
 from ..ops.polyhedron import ray_tensors
 from ..ops.rasterize import rasterize_polyhedra
+from ..utils import as_tensor_on
 
 
 def polyhedron_to_label(dist, points, rays, shape, prob=None, thr=-np.inf, labels=None,
-                        mode="full", verbose=True, overlap_label=None):
+                        mode="full", verbose=True, overlap_label=None, device="cuda"):
     """Label volume of star polyhedra. dist (n, n_rays), points (n, 3).
-    Tensors in -> int32 tensor on their device; numpy in -> numpy int32.
+    Tensors in -> int32 tensor on their device; numpy in -> numpy int32,
+    drawn on ``device`` (the card unless the caller passes ``device="cpu"``).
     Only ``mode="full"`` (the exact polyhedron) is ported."""
     as_numpy = not isinstance(dist, torch.Tensor)
+    dist = as_tensor_on(dist, device)
+    dev = dist.device
     if len(points) == 0:
         if verbose:
             print("warning: empty list of points (returning background-only image)")
-        out = torch.zeros(tuple(shape), dtype=torch.int32)
-        return out.numpy() if as_numpy else out.to(dist.device)
-    dist = torch.as_tensor(np.asarray(dist) if as_numpy else dist)
-    dev = dist.device
+        out = torch.zeros(tuple(shape), dtype=torch.int32, device=dev)
+        return out.cpu().numpy() if as_numpy else out
     points = torch.as_tensor(points, device=dev)
     if dist.dim() == 1:
         dist = dist.reshape(1, -1)

@@ -3,19 +3,16 @@
 Sorting and marshalling happen here; the overlap tests and the greedy
 suppression run in :mod:`stardist_torch.ops.nms` on the device the
 candidates live on. Inputs may be numpy arrays or torch tensors; the outputs
-are of the kind ``dist`` was given as.
+are of the kind ``dist`` was given as. Tensors stay on their device; numpy
+inputs go to ``device`` (the card unless the caller passes ``device="cpu"``).
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .ops.nms import nms_polygons, nms_polyhedra
 from .ops.polyhedron import ray_tensors
-
-
-def _as_tensor(x, device=None):
-    return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x)).to(device)
+from .utils import as_tensor_on
 
 
 def descending_order(prob):
@@ -25,15 +22,15 @@ def descending_order(prob):
 
 
 def non_maximum_suppression_sparse(dist, prob, points, b=2, nms_thresh=0.5,
-                                   verbose=False, stats=None):
+                                   verbose=False, stats=None, device="cuda"):
     """NMS from sparse candidate lists.
 
     Returns (points, prob, dist, inds_original) of the survivors, in
     descending-prob order."""
     as_numpy = not isinstance(dist, torch.Tensor)
-    dist = _as_tensor(dist)
-    prob = _as_tensor(prob, dist.device)
-    points = _as_tensor(points, dist.device)
+    dist = as_tensor_on(dist, device)
+    prob = as_tensor_on(prob, dist.device)
+    points = as_tensor_on(points, dist.device)
     assert dist.dim() == 2 and prob.dim() == 1 and points.dim() == 2 \
         and points.shape[-1] == 2 and len(prob) == len(dist) == len(points)
 
@@ -49,13 +46,14 @@ def non_maximum_suppression_sparse(dist, prob, points, b=2, nms_thresh=0.5,
     return out
 
 
-def non_maximum_suppression_inds(dist, points, scores, thresh=0.5, stats=None):
+def non_maximum_suppression_inds(dist, points, scores, thresh=0.5, stats=None,
+                                 device="cuda"):
     """Greedy NMS over score-sorted polygons: P1 suppresses P2 if
     overlap(P1, P2) = A_inter / min(A1, A2) > thresh. Returns bool survivors
     (a tensor for tensor input, else a numpy array)."""
     as_numpy = not isinstance(dist, torch.Tensor)
-    dist = _as_tensor(dist)
-    points = _as_tensor(points, dist.device)
+    dist = as_tensor_on(dist, device)
+    points = as_tensor_on(points, dist.device)
     assert dist.dim() == 2 and points.dim() == 2 and points.shape[0] == dist.shape[0]
     keep = nms_polygons(dist.to(torch.float32), points.to(torch.float32),
                         thresh=float(thresh), stats=stats)
@@ -63,15 +61,15 @@ def non_maximum_suppression_inds(dist, points, scores, thresh=0.5, stats=None):
 
 
 def non_maximum_suppression_3d_sparse(dist, prob, points, rays, b=2, nms_thresh=0.5,
-                                      verbose=False, stats=None):
+                                      verbose=False, stats=None, device="cuda"):
     """NMS from sparse 3D candidate lists (``rays``: the model's ``Rays``).
 
     Returns (points, prob, dist, inds_original) of the survivors, in
     descending-prob order."""
     as_numpy = not isinstance(dist, torch.Tensor)
-    dist = _as_tensor(dist)
-    prob = _as_tensor(prob, dist.device)
-    points = _as_tensor(points, dist.device)
+    dist = as_tensor_on(dist, device)
+    prob = as_tensor_on(prob, dist.device)
+    points = as_tensor_on(points, dist.device)
     assert dist.dim() == 2 and prob.dim() == 1 and points.dim() == 2 \
         and dist.shape[-1] == len(rays) and points.shape[-1] == 3 \
         and len(prob) == len(dist) == len(points)
@@ -88,16 +86,17 @@ def non_maximum_suppression_3d_sparse(dist, prob, points, rays, b=2, nms_thresh=
     return out
 
 
-def non_maximum_suppression_3d_inds(dist, points, rays, scores, thresh=0.5, stats=None):
+def non_maximum_suppression_3d_inds(dist, points, rays, scores, thresh=0.5, stats=None,
+                                    device="cuda"):
     """Greedy NMS over 3D star polyhedra, sorted here by ``scores`` (the
     reference sorts again even when :func:`non_maximum_suppression_3d_sparse`
     has sorted already, which puts equal scores back in ascending list
     order). Returns bool survivors in the given order (a tensor for tensor
     input, else a numpy array)."""
     as_numpy = not isinstance(dist, torch.Tensor)
-    dist = _as_tensor(dist)
-    points = _as_tensor(points, dist.device)
-    scores = _as_tensor(scores, dist.device)
+    dist = as_tensor_on(dist, device)
+    points = as_tensor_on(points, dist.device)
+    scores = as_tensor_on(scores, dist.device)
     assert dist.dim() == 2 and points.dim() == 2 and dist.shape[1] == len(rays) \
         and points.shape[0] == dist.shape[0] == scores.shape[0]
     ind = descending_order(scores)

@@ -3,8 +3,9 @@
 Each ``.cu`` file is compiled on first use with ``nvcc`` into a shared
 library with a plain C interface and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). Libraries go to ``build/stardist_torch/``
-beside the package and are named by a hash of the source and the flags, so
-an edited source is rebuilt and an unchanged one is loaded as it is.
+beside the package and are named by a hash of the source, the headers of
+``csrc`` it includes and the flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as it is.
 
 Every C entry point takes device pointers and the CUDA stream as
 ``void*`` plus ``int`` sizes, launches on that stream, and returns
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -25,9 +27,21 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "stardist_torch"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
-def _nvcc():
+def local_sources(path, found=None):
+    """``path`` and the files of its directory that it includes with
+    ``#include "..."``, directly or through one another."""
+    found = [] if found is None else found
+    if path not in found:
+        found.append(path)
+        for name in _LOCAL_INCLUDE.findall(path.read_text()):
+            local_sources(path.parent / name, found)
+    return found
+
+
+def nvcc_path():
     nvcc = shutil.which("nvcc")
     if nvcc is None:
         cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
@@ -56,7 +70,9 @@ class CudaKernel:
         self._fn = None
 
     def library_path(self):
-        h = hashlib.sha256(self.source.read_bytes())
+        h = hashlib.sha256()
+        for path in local_sources(self.source):
+            h.update(path.read_bytes())
         h.update(" ".join(self.flags).encode())
         return BUILD_DIR / f"lib{self.source.stem}_{h.hexdigest()[:16]}.so"
 
@@ -70,7 +86,7 @@ class CudaKernel:
         if not lib_path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *self.flags, "-o", str(tmp), str(self.source)]
+            cmd = [nvcc_path(), *self.flags, "-o", str(tmp), str(self.source)]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {self.source.name}:\n"

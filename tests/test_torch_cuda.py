@@ -30,10 +30,13 @@ def cuda_device():
 
 
 # the full-width model's (C_in, C_out) pairs, ragged sizes, and the
-# C_in = 1 first layer
+# C_in = 1 first layer; W = 64 and W = 8 (narrower tiles), C = Cout = 256, H = 1,
+# Cout below the wgmma width, W not a multiple of the tile's 32 columns
 CONV_SHAPES = [(1, 32, 64, 256), (8, 32, 64, 256), (32, 32, 64, 256), (32, 64, 32, 128),
                (64, 128, 32, 128), (128, 256, 16, 64), (256, 128, 16, 64),
-               (64, 32, 37, 45), (16, 16, 33, 129), (32, 16, 1, 3)]
+               (64, 32, 37, 45), (16, 16, 33, 129), (32, 16, 1, 3),
+               (64, 64, 9, 64), (16, 32, 5, 8), (256, 256, 6, 70), (32, 24, 1, 100),
+               (8, 8, 3, 33)]
 
 
 @pytest.mark.parametrize("C,Cout,H,W", CONV_SHAPES)
@@ -55,9 +58,12 @@ def test_conv_kernel_matches_plain(cuda_device, C, Cout, H, W, act):
 
 
 # 3x3x3: C_in = 1 (padded to 8), 8 and 16; Cout 8 and 128; a ragged W of
-# 130 (more than one 128-voxel tile); D = 3 (every plane touches a face)
+# 130 (not a multiple of the tile); D = 3 (every plane touches a face); D = 1,
+# W = 64, W = 8, and C = 128 (weights streamed per stage)
 CONV3D_SHAPES = [(1, 8, 3, 5, 130), (8, 128, 3, 7, 130), (16, 8, 3, 9, 130),
-                 (16, 128, 3, 4, 130), (8, 16, 5, 6, 17)]
+                 (16, 128, 3, 4, 130), (8, 16, 5, 6, 17),
+                 (32, 32, 1, 6, 64), (64, 128, 4, 3, 64), (32, 64, 3, 4, 8),
+                 (128, 64, 3, 5, 23)]
 
 
 @pytest.mark.parametrize("C,Cout,D,H,W", CONV3D_SHAPES)
@@ -76,6 +82,63 @@ def test_conv3d_kernel_matches_plain(cuda_device, C, Cout, D, H, W, act):
     # bf16 outputs of f32 sums taken in another order
     scale = max(1.0, ref.float().abs().max().item())
     assert (y.float() - ref.float()).abs().max().item() / scale < 1e-2
+
+
+@pytest.mark.parametrize("nd,C,Cout,shape", [(2, 8, 32, (40, 100)), (2, 32, 128, (37, 70)),
+                                             (2, 256, 128, (20, 45)), (2, 128, 256, (12, 40)),
+                                             (3, 32, 32, (6, 20, 40)), (3, 64, 128, (5, 12, 23))])
+def test_conv_kernel_is_deterministic_and_independent_of_position(cuda_device, nd, C, Cout,
+                                                                   shape):
+    """The same input twice gives bitwise equal outputs, and a crop of the
+    input gives the crop's interior bitwise (every pixel's sum is taken in
+    the same order whatever tile or block holds it)."""
+    rng = np.random.RandomState(C + Cout + nd)
+    x = torch.from_numpy(rng.randn(*shape, C).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    w = torch.from_numpy((rng.randn(*(3,) * nd, C, Cout) * 0.1).astype(np.float32)).to(cuda_device)
+    b = torch.from_numpy(rng.randn(Cout).astype(np.float32)).to(cuda_device)
+    fn = tconv.conv3x3_hwc if nd == 2 else tconv.conv3x3x3_dhwc
+    y1, y2 = fn(x, w, b, "relu"), fn(x, w, b, "relu")
+    assert torch.equal(y1, y2)
+    crop = tuple(slice(s // 4, s // 4 + max(3, s // 2)) for s in shape)
+    yc = fn(x[crop].contiguous(), w, b, "relu")
+    inner = tuple(slice(1, -1) for _ in shape)
+    full_inner = tuple(slice(c.start + 1, c.stop - 1) for c in crop)
+    assert torch.equal(yc[inner], y1[full_inner])
+
+
+def test_conv_kernel_splits_cout_above_256(cuda_device):
+    """More than 256 output channels: one launch per 256, written into one
+    output."""
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(6, 40, 32).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    w = torch.from_numpy((rng.randn(3, 3, 32, 320) * 0.1).astype(np.float32)).to(cuda_device)
+    b = torch.from_numpy(rng.randn(320).astype(np.float32)).to(cuda_device)
+    n0 = tconv.KERNEL.launches
+    y = tconv.conv3x3_hwc(x, w, b, "linear")
+    torch.cuda.synchronize()
+    assert tconv.KERNEL.launches == n0 + 2
+    ref = tconv.conv3x3_hwc_plain(x, w, b, "linear")
+    scale = max(1.0, ref.float().abs().max().item())
+    assert (y.float() - ref.float()).abs().max().item() / scale < 1e-2
+
+
+def test_numpy_inputs_run_on_the_card_by_default(cuda_device):
+    """Numpy inputs of the NMS and of polygons_to_label go to the card
+    unless the caller asks for the CPU: the card's kernels launch."""
+    from stardist_torch.geometry import polygons_to_label
+    from stardist_torch.nms import non_maximum_suppression_sparse
+    rng = np.random.RandomState(0)
+    d = rng.uniform(3, 9, (200, 32)).astype(np.float32)
+    p = rng.uniform(8, 120, (200, 2)).astype(np.float32)
+    prob = rng.uniform(0.5, 1, 200).astype(np.float32)
+    n_pair, n_raster = tpo.KERNEL.launches, trt.KERNEL.launches
+    got = non_maximum_suppression_sparse(d, prob, p, nms_thresh=0.3)
+    lbl = polygons_to_label(d, p, (128, 128), prob=prob)
+    assert tpo.KERNEL.launches > n_pair and trt.KERNEL.launches > n_raster
+    ref = non_maximum_suppression_sparse(d, prob, p, nms_thresh=0.3, device="cpu")
+    for a, r in zip(got, ref):
+        assert isinstance(a, np.ndarray) and np.array_equal(a, r)
+    assert isinstance(lbl, np.ndarray) and lbl.max() > 0
 
 
 def test_conv_kernel_rejects_float32(cuda_device):

@@ -49,7 +49,7 @@ def test_nms_sparse_api_matches_reference():
     d, p, s = _field(400, 7)
     s[10:20] = s[5]                     # ties: descending index among them
     ref = nms_sparse_jax(d, s, p, nms_thresh=0.4)
-    got = non_maximum_suppression_sparse(d, s, p, nms_thresh=0.4)
+    got = non_maximum_suppression_sparse(d, s, p, nms_thresh=0.4, device="cpu")
     for a, b in zip(got, ref):
         assert np.array_equal(a, np.asarray(b))
 

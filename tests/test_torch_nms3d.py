@@ -68,7 +68,7 @@ def test_nms_3d_sparse_api_matches_reference(candidates):
     prob, d, p = prob[sub].copy(), d[sub], p[sub]
     prob[10:40] = prob[5]                     # ties
     ref = nms3d_sparse_jax(d, prob, p, rays, nms_thresh=thresh)
-    got = non_maximum_suppression_3d_sparse(d, prob, p, rays, nms_thresh=thresh)
+    got = non_maximum_suppression_3d_sparse(d, prob, p, rays, nms_thresh=thresh, device="cpu")
     assert len(ref[0]) > 1
     for a, b in zip(got, ref):
         assert np.array_equal(a, np.asarray(b))
