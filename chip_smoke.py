@@ -16,14 +16,19 @@ Phases (each prints one line; any failed check exits non-zero):
       and the kernel's share of it;
   (c) pair kernel vs its plain version on 10^5 seeded random polygon pairs
       at S = 8 and S = 16: results must be exactly equal; times and bound;
+      then exact equality at R = 3, 32 and 128 on random pairs and on pairs
+      whose samples sit where the kernel's wedge lookup is most likely to go
+      wrong (adversarial_offsets);
   (d) the full-width forward at 4096^2 with seeded random weights, kernel
       path vs plain path;
   (e) StarDist2D(None, "2D_demo", "models/examples").predict_instances on a
       synthetic nuclei field of 2048^2 on the card: stage times, counts,
       AP@0.5 (StarDist's matching accuracy) against the field's ground truth,
-      launch counts of the conv, pair and raster kernels, and the pair
-      kernel's bound for the call's exact pairs; then 1024^2 on the card
-      against the same call on the CPU;
+      launch counts of the conv, pair and raster kernels, the exact pairs
+      at S = 8 and at S = 16, and the pair kernel's bound for them; one
+      nms_polygons call on the same candidates split by torch.profiler
+      (nms_profile); then 1024^2 on the card against the same call on the
+      CPU;
   (f) conv3d kernel vs its plain version at every layer shape of the
       full-width StarDist 3D forward (Config3D(grid=(1, 2, 2)), 96 rays,
       depth 2, 32 filters) on a 64x512x512 volume; times, the cuDNN
@@ -54,7 +59,8 @@ Phases (each prints one line; any failed check exits non-zero):
       rounds in turn), launch counts, and where the
       two differ: the differing pixels and survivors, in all and within
       the tiles' overlap band around a seam, and the dense prediction's
-      largest differences, tiled against untiled.
+      largest differences, tiled against untiled; and the untiled call's
+      nms_polygons split by torch.profiler.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. With --phases, only (a) and the named phases
 run (e.g. --phases k to time the tiled call alone), and neither line is
@@ -333,6 +339,52 @@ def random_pairs(P, R, dev, seed):
     return d_r, p_r, d_c, p_c, lo, (hi - lo).clamp_min(0.0)
 
 
+def adversarial_offsets(R):
+    """Offsets u = q - p (f32, (n, 2)) of a sample from a polygon's centre
+    where the pair kernel's wedge lookup is most likely to go wrong: on
+    every ray, +-1 ulp off it, at the centre, at |u| of 1e-30 and 1e-44,
+    at theta near +-pi and near 2 pi - dphi / 2, and above 2^64."""
+    dphi = 2 * np.pi / R
+    ang = np.arange(R) * dphi
+    s0, c0 = np.sin(ang).astype(np.float32), np.cos(ang).astype(np.float32)
+    u = []
+    for r in (1.0, 0.5, 3.0, 7.77, 1e-30, 1e-44, 1e20):
+        u += list(zip(np.float32(r) * s0, np.float32(r) * c0))
+    on_ray = np.array(u[:4 * R], np.float32)
+    for ax in (0, 1):
+        for to in (np.inf, -np.inf):
+            off = on_ray.copy()
+            off[:, ax] = np.nextafter(off[:, ax], np.float32(to))
+            u += list(map(tuple, off))
+    u += [(0.0, 0.0), (-0.0, 0.0), (0.0, -0.0), (1e-44, 0.0), (0.0, -1e-44), (1e-44, -1e-44),
+          (-1e-30, 1e-30), (1e-45, 1e-45)]
+    for tiny in (0.0, -0.0, 1e-7, -1e-7, 1e-30, -1e-30, 1e-45, -1e-45):
+        for uc in (-1.0, -5.0):
+            u.append((tiny, uc))
+    for a in (2 * np.pi - dphi / 2, np.pi, -np.pi):
+        for e in (-1e-6, -1e-7, 0.0, 1e-7, 1e-6):
+            for r in (1.0, 6.0):
+                u.append((r * math.sin(a + e), r * math.cos(a + e)))
+    return np.array(u, np.float32)
+
+
+def adversarial_pairs(R, dev, seed=0):
+    """A pair for each :func:`adversarial_offsets` u, both polygons centred
+    at -u (some regular), over a bbox intersection whose first sample lies
+    at the origin at S = 8 (extent 8) or at S = 16 (extent 16): the kernel
+    tests u itself and the grid's other samples about it."""
+    u = torch.from_numpy(adversarial_offsets(R))
+    n = len(u)
+    g = torch.Generator().manual_seed(seed)
+    d_r = torch.rand(2 * n, R, generator=g) * 8 + 4
+    d_c = torch.rand(2 * n, R, generator=g) * 8 + 4
+    d_c[::3] = 6.0
+    p = torch.cat([-u, -u])
+    ext = torch.cat([torch.full((n, 2), 8.0), torch.full((n, 2), 16.0)])
+    plo = torch.full((2 * n, 2), -0.5)
+    return tuple(t.to(dev) for t in (d_r, p, d_c, p.clone(), plo, ext))
+
+
 def inside_test_ops(R):
     """f32 operations of one inside test of a point against a star polygon
     of R rays, as the function needs it: the wedge found by ceil(log2 R)
@@ -352,7 +404,20 @@ def pair_bound(P, R, S):
                  PEAK_F32)
 
 
+def pair_kernel_ms(po, args, S):
+    """The pair kernel alone on ``args``: the trig table and the output made
+    once, one launch per run (the call adds the wrapper's checks and
+    allocation on the host)."""
+    P, R = args[0].shape
+    out = torch.empty(P, device=args[0].device)
+    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (*args, po.trig_table(R, args[0].device), out)]
+    return cuda_ms(lambda: po.KERNEL.launch(*ptrs, P, R, S, po.stream_ptr(args[0].device)),
+                   warmup=3, iters=30)
+
+
 def phase_c(dev, po):
+    """Pair kernel vs plain: exact, times and bound on 10^5 pairs (R = 32);
+    exact on random and adversarial pairs at R = 3, 32 and 128."""
     args = random_pairs(N_PAIRS, 32, dev, 7)
     out = {}
     for S in (8, 16):
@@ -361,14 +426,27 @@ def phase_c(dev, po):
         torch.cuda.synchronize()
         n_diff = int((got != ref).sum().item())
         check(n_diff == 0, f"pair kernel differs from plain on {n_diff} pairs at S={S}")
-        out[S] = (cuda_ms(lambda: po.pair_frac(*args, S=S)),
-                  cuda_ms(lambda: po.pair_frac_plain(*args, S=S), iters=1),
-                  float(got.mean().item()), (got - ref).abs().max().item(),
-                  *pair_bound(N_PAIRS, 32, S))
+        b_ms, b_by = pair_bound(N_PAIRS, 32, S)
+        out[S] = dict(ms=pair_kernel_ms(po, args, S),
+                      call_ms=cuda_ms(lambda: po.pair_frac(*args, S=S), warmup=3, iters=30),
+                      plain_ms=cuda_ms(lambda: po.pair_frac_plain(*args, S=S), iters=1),
+                      mean=float(got.mean().item()), err=(got - ref).abs().max().item(),
+                      bound_ms=b_ms, bound_by=b_by)
+    n_more = 0
+    for R in (3, 32, 128):
+        more = [torch.cat(ts) for ts in zip(random_pairs(20_000, R, dev, R),
+                                             adversarial_pairs(R, dev))]
+        for S in (8, 16):
+            n_diff = int((po.pair_frac(*more, S=S) != po.pair_frac_plain(*more, S=S)).sum().item())
+            check(n_diff == 0, f"pair kernel differs from plain on {n_diff} pairs at R={R}, S={S}")
+        n_more += len(more[0])
     print(f"(c) pair kernel vs plain on {N_PAIRS} pairs: exact at S=8 and S=16; "
-          + "; ".join(f"S={S}: {k:.3f} ms kernel / {p:.1f} ms plain, bound {b:.4f} ms ({by}), "
-                      f"{100 * b / k:.1f}% of bound, mean frac {m:.4f}"
-                      for S, (k, p, m, _, b, by) in out.items()), flush=True)
+          + "; ".join(f"S={S}: kernel {r['ms']:.4f} ms (call {r['call_ms']:.4f} ms) / plain "
+                      f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                      f"kernel at {100 * r['bound_ms'] / r['ms']:.1f}% of bound, mean frac "
+                      f"{r['mean']:.4f}" for S, r in out.items())
+          + f"; exact too on {n_more} random and adversarial pairs at R = 3, 32 and 128",
+          flush=True)
     return out
 
 
@@ -411,6 +489,64 @@ def read_launches(kernels, model, n_calls=1):
     return launches
 
 
+def host_syncs(fn):
+    """Host syncs that one call of fn() makes, as torch's sync debug mode
+    flags them."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message).lower() for w in caught)
+
+
+def nms_profile(model, img, pair_kernel, n_top=8):
+    """One whole nms_polygons call on the candidates of
+    ``model.predict_instances(img)`` (one tile), as ``predict_instances``
+    makes it, split by torch.profiler: its wall, the device time of its
+    CUDA kernels and copies (and the share of the wall they fill), the
+    launches of ``pair_kernel``, the host syncs of one call, and the ``n_top``
+    CUDA ops by device time. Returns the line's text."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from stardist_torch.nms import descending_order
+    from stardist_torch.ops.nms import nms_polygons
+    prob, dist, points = model._predict_sparse(img)
+    o = descending_order(prob)
+    d, p = dist[o].float().contiguous(), points[o].float().contiguous()
+    thresh, stats = model.thresholds.nms, {}
+    nms_polygons(d, p, thresh=thresh)                 # warm-up
+    n_sync = host_syncs(lambda: nms_polygons(d, p, thresh=thresh))
+    torch.cuda.synchronize()
+    n0 = pair_kernel.launches
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            nms_polygons(d, p, thresh=thresh, stats=stats)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        ops = []
+        for e in prof.key_averages():                 # the card's kernels and copies
+            if e.device_type == DeviceType.CUDA:
+                us = getattr(e, "self_device_time_total", None)
+                us = getattr(e, "self_cuda_time_total", 0) if us is None else us
+                ops.append((us / 1e3, e.count, e.key))
+    except Exception as exc:                          # a measurement, not a check
+        return f"torch.profiler failed: {exc!r}"
+    if not ops:
+        return "torch.profiler saw no device time"
+    ops.sort(reverse=True)
+    busy = sum(ms for ms, _, _ in ops)
+    top = "; ".join(f"{name[:70]} {ms:.3f} ms x{n}" for ms, n, name in ops[:n_top])
+    return (f"{stats['n_candidates']} candidates, {stats['n_pairs']} bbox pairs, "
+            f"{stats['n_eval_pairs']} exact pairs at S=8, {stats['n_fine_pairs']} at S=16: wall "
+            f"{wall:.2f} ms (profiled), device time {busy:.2f} ms ({100 * busy / wall:.0f}% of "
+            f"the wall), pair kernel launches {pair_kernel.launches - n0}, host syncs {n_sync}; "
+            f"top CUDA ops by device time: {top}")
+
+
 def phase_e(dev, kernels, matching, StarDist2D):
     model = StarDist2D(None, "2D_demo", "models/examples", device=dev)
     img, lbl = synthetic_nuclei((E2E_SIZE, E2E_SIZE), seed=123)
@@ -428,13 +564,16 @@ def phase_e(dev, kernels, matching, StarDist2D):
     t = details["timings_s"]
     c = details["nms_counters"]
     b_pair, b_pair_by = pair_bound(c["n_eval_pairs"], model.config.n_rays, 8)
+    b_fine, b_fine_by = pair_bound(c["n_fine_pairs"], model.config.n_rays, 16)
     print(f"(e) predict_instances {E2E_SIZE}^2 on the card: wall {wall * 1e3:.1f} ms = forward "
           f"{t['forward'] * 1e3:.1f} + extract {t['extract'] * 1e3:.1f} + nms "
           f"{t['nms'] * 1e3:.1f} + raster {t['raster'] * 1e3:.1f} ms (+ host setup); "
           f"{c['n_candidates']} candidates, {c['n_pairs']} bbox pairs, {c['n_eval_pairs']} "
-          f"exact pairs in {c['n_rounds']} rounds, {len(details['prob'])} objects "
-          f"({int(lbl.max())} true), AP@0.5 {ap:.4f}; launches {launches}; the pair kernel's "
-          f"bound for these exact pairs at S=8: {b_pair:.4f} ms ({b_pair_by})", flush=True)
+          f"exact pairs in {c['n_rounds']} rounds ({c['n_fine_pairs']} of them at S=16 too), "
+          f"{len(details['prob'])} objects ({int(lbl.max())} true), AP@0.5 {ap:.4f}; launches "
+          f"{launches}; the pair kernel's bound for these exact pairs at S=8: {b_pair:.4f} ms "
+          f"({b_pair_by}), at S=16: {b_fine:.4f} ms ({b_fine_by})", flush=True)
+    print(f"(e) nms_polygons at {E2E_SIZE}^2, split: {nms_profile(model, img, kernels['pair'])}", flush=True)
 
     img1, _ = synthetic_nuclei((CMP_SIZE, CMP_SIZE), seed=123)
     lab_gpu, _ = model.predict_instances(img1)
@@ -632,14 +771,7 @@ def phase_j(dev, kernels, StarDist2D):
     x_dev = torch.from_numpy(img).to(dev)
     lab_t, _ = model.predict_instances_device(x_dev)
     check(np.array_equal(lab_t, labels), "pre-staged tensor input gives other labels")
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            model.predict_instances_device(x_dev, fetch=False)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    n_sync = sum("synchroniz" in str(w.message).lower() for w in caught)
+    n_sync = host_syncs(lambda: model.predict_instances_device(x_dev, fetch=False))
     walls = walls_ms({"predict_instances": lambda: model.predict_instances(img),
                       "fetch=True": lambda: model.predict_instances_device(img),
                       "fetch=False": lambda: model.predict_instances_device(img, fetch=False)},
@@ -744,6 +876,8 @@ def phase_k(dev, kernels, matching, StarDist2D):
           f"{seams}; "
           f"launches (tiled call) {launches}; 3 rounds of warm calls in turn, median "
           f"(min-max): {walls}", flush=True)
+    print(f"(k) nms_polygons at {TILED_SIZE}^2 untiled, split: "
+          f"{nms_profile(model, img, kernels['pair'])}", flush=True)
     return launches
 
 
@@ -830,9 +964,9 @@ def main(argv=None):
         {"name": "pair_frac_f32", "route": "cuda",
          "source": "stardist_torch/csrc/pair_overlap.cu",
          "replaces": "stardist_tpu/ops/pair_overlap.py:82",
-         "launches": launches["pair"], "max_abs_err": max(pair[8][3], pair[16][3]),
-         "ms": pair[16][0], "plain_ms": pair[16][1], "bound_ms": pair[16][4],
-         "bound_by": pair[16][5], "library_ms": None},
+         "launches": launches["pair"], "max_abs_err": max(r["err"] for r in pair.values()),
+         **{k: pair[16][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None, "ms_s8": pair[8]["ms"], "call_ms": pair[16]["call_ms"]},
         conv_row("conv3x3x3_bf16_dhwc", "stardist_torch/csrc/conv3x3x3.cu",
                  "stardist_tpu/ops/conv_pallas.py:574", launches["conv3d"], conv3d),
         {"name": "raster_tiles_i64", "route": "cuda",

@@ -5,30 +5,53 @@
 //
 // Replaces the Pallas TPU kernels of stardist_tpu/ops/pair_overlap.py:
 // _pair_kernel (one pair per 128-lane row) and _pair_kernel2 (two S = 8
-// pairs per row, a TPU lane-packing trick with no counterpart here).
+// pairs per row), whose inside test is _inside_body.
 //
-// What bounds it on the H100: arithmetic. Per sample and polygon the wedge
-// search walks all R rays (2 products + 1 subtraction each) and the rest is
-// a handful of flops; the inputs are 2R + 8 floats per pair, read once. The
-// design keeps everything on chip:
-// - one warp per pair; each lane takes S*S/32 samples (2 at S = 8, 8 at
-//   S = 16), and a warp shuffle reduction counts the samples inside both;
-// - the two dist rows of each warp's pair and the (4, R) trig table sit in
-//   shared memory, read by all 32 lanes (broadcast);
-// - the wedge is selected by cross-product signs, cr_k >= 0 && cr_{k+1} < 0
-//   with cr_k = ur*cos(phi_k) - uc*sin(phi_k), as the TPU kernel does (no
-//   atan2). At the polygon's exact center no wedge matches, the wedge
-//   vertices stay 0 and the side test passes, as on the TPU.
+// What bounds it on the H100: arithmetic (f32, outside the tensor cores).
+// The inputs are 2R + 8 floats per pair, read once; per sample and polygon
+// the function needs one wedge of the R. The design:
+// - a wedge lookup, not a walk over all R rays: a polynomial arctangent of
+//   the sample's offset u = q - p (within 0.004 rad, where a wedge is at
+//   least 2 pi / 128 = 0.049 rad) gives the wedge k0 to within one, and the
+//   walk's own predicate is evaluated on the window k0 - 1, k0, k0 + 1
+//   only (below);
+// - a persistent grid: each block stages the trig table once, as float4
+//   (sin phi_k, cos phi_k, sin phi_k+1, cos phi_k+1), and its warps walk
+//   the pairs grid-stride; a pair takes 16 lanes at S = 8 (two pairs per
+//   warp) and 32 at S = 16, 4 or 8 samples a lane, and a butterfly of
+//   shuffles sums the lanes' counts;
+// - the dist rows are read straight through L1 (two entries per sample);
+// - a sample outside the first polygon skips the second test.
+//
+// The wedge rule is the TPU kernel's: wedge k matches when cr_k >= 0 and
+// cr_k+1 < 0, cr_k = ur*cos(phi_k) - uc*sin(phi_k) (cr_R = cr_0), and the
+// vertices are summed over the matching wedges. Exactness of the lookup:
+// with |u| in [2^-60, 2^64) the rounded cr_k has the sign of
+// |u| sin(theta - phi_k), theta = atan2(ur, uc), for every ray but those
+// within ~2^-23 rad of theta or of theta + pi (each product is off by at
+// most 2^-24 of itself, plus 2^-150, which is below 2^-89 |u|). At most one
+// ray is that close to each (the rays are at least 2 pi / 128 apart), and
+// its neighbours have sure signs: around theta + pi they run (-, ?, +),
+// which matches nowhere; around theta (+, ?, -), which matches exactly once.
+// So the walk finds exactly one wedge, and the window's predicate is the
+// walk's: a window with exactly one match holds the walk's wedge. The walk
+// itself stays for two exact guards: |u| outside that range (u = 0 among
+// them: there no wedge matches, the vertices stay 0 and the side test
+// passes, as on the TPU), and a window without exactly one match (a miss
+// of the estimate).
 //
 // Bitwise agreement with the plain PyTorch version (ops/pair_overlap.py):
 // - the trig table is numpy's f64 sin/cos cast to f32, passed in; no
-//   sinf/cosf here;
-// - sample coordinates are plo + (((i / S) + 0.5) / S) * ext, in that order;
+//   sinf/cosf here (the arctangent only picks the window);
+// - sample coordinates are plo + (((i / S) + 0.5) / S) * ext, in that order
+//   (the division by S, a power of two, as the exact product with 1 / S);
 // - every product and sum is rounded on its own (__fmul_rn / __fadd_rn /
 //   __fsub_rn, and the file is built with -fmad=false): a fused
 //   multiply-add in er*(uc-v0c) - ec*(ur-v0r) would flip samples lying
 //   within one rounding of an edge, and near the NMS threshold such a flip
 //   changes a decision;
+// - the vertex sums are 0.0f plus the one matching wedge's terms, as the
+//   walk forms them;
 // - the result is a count of 0/1 samples divided by S*S (a power of two),
 //   exact in f32 whatever the summation order.
 #include <cuda_runtime.h>
@@ -36,86 +59,177 @@
 namespace {
 
 constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
 constexpr int RMAX = 128;
+constexpr int MAX_DEVICES = 64;
+constexpr float U_LO = 0x1p-60f;  // |u| range of the lookup (see the header)
+constexpr float U_HI = 0x1p64f;
 
-__device__ __forceinline__ float cross_ray(float ur, float uc, float c, float s) {
-  return __fsub_rn(__fmul_rn(ur, c), __fmul_rn(uc, s));
+// tab[k] = (sin phi_k, cos phi_k, sin phi_k+1, cos phi_k+1)
+__device__ __forceinline__ float cross_ray(float ur, float uc, float4 t) {
+  return __fsub_rn(__fmul_rn(ur, t.y), __fmul_rn(uc, t.x));
 }
 
-// Inside test of sample (qr, qc) against the star polygon with dists d[R]
-// about (pr, pc). trig = [sin phi_k | cos phi_k | sin phi_k+1 | cos phi_k+1].
-__device__ bool inside(const float* d, float pr, float pc, float qr, float qc,
-                       const float* trig, int R) {
-  const float* s0 = trig;
-  const float* c0 = trig + R;
-  const float* s1 = trig + 2 * R;
-  const float* c1 = trig + 3 * R;
-  const float ur = __fsub_rn(qr, pr);
-  const float uc = __fsub_rn(qc, pc);
-  const float cr0 = cross_ray(ur, uc, c0[0], s0[0]);
-  float prev = cr0;
-  float v0r = 0.0f, v0c = 0.0f, v1r = 0.0f, v1c = 0.0f;
-  for (int k = 0; k < R; ++k) {
-    const float nxt = (k == R - 1) ? cr0 : cross_ray(ur, uc, c0[k + 1], s0[k + 1]);
-    if (prev >= 0.0f && nxt < 0.0f) {
-      // the plain version sums w * (d * trig) over all k with w in {0, 1};
-      // adding the selected terms only gives the same values
-      const float a = d[k];
-      const float b = d[k + 1 == R ? 0 : k + 1];
-      v0r = __fadd_rn(v0r, __fmul_rn(a, s0[k]));
-      v0c = __fadd_rn(v0c, __fmul_rn(a, c0[k]));
-      v1r = __fadd_rn(v1r, __fmul_rn(b, s1[k]));
-      v1c = __fadd_rn(v1c, __fmul_rn(b, c1[k]));
-    }
-    prev = nxt;
-  }
-  const float er = __fsub_rn(v1r, v0r);
-  const float ec = __fsub_rn(v1c, v0c);
-  const float cross_p = __fsub_rn(__fmul_rn(er, __fsub_rn(uc, v0c)),
-                                  __fmul_rn(ec, __fsub_rn(ur, v0r)));
-  const float cross_c = __fsub_rn(__fmul_rn(ec, v0r), __fmul_rn(er, v0c));
+// wedge k's vertex terms added to the running sums v = (v0r, v0c, v1r, v1c)
+__device__ __forceinline__ void add_wedge(float4& v, const float* __restrict__ d, int k,
+                                          int R, float4 t) {
+  const float a = __ldg(d + k);
+  const float b = __ldg(d + (k + 1 == R ? 0 : k + 1));
+  v.x = __fadd_rn(v.x, __fmul_rn(a, t.x));
+  v.y = __fadd_rn(v.y, __fmul_rn(a, t.y));
+  v.z = __fadd_rn(v.z, __fmul_rn(b, t.z));
+  v.w = __fadd_rn(v.w, __fmul_rn(b, t.w));
+}
+
+// the side test of u against the wedge's edge v0 -> v1
+__device__ __forceinline__ bool side(float ur, float uc, float4 v) {
+  const float er = __fsub_rn(v.z, v.x);
+  const float ec = __fsub_rn(v.w, v.y);
+  const float cross_p = __fsub_rn(__fmul_rn(er, __fsub_rn(uc, v.y)),
+                                  __fmul_rn(ec, __fsub_rn(ur, v.x)));
+  const float cross_c = __fsub_rn(__fmul_rn(ec, v.x), __fmul_rn(er, v.y));
   return __fmul_rn(cross_p, cross_c) >= 0.0f;
 }
 
+// The guards' path: the walk over all R wedges, summing every match in
+// ascending k (the TPU kernel's _inside_body).
+__device__ __noinline__ bool inside_walk(const float* __restrict__ d, float ur, float uc,
+                                         const float4* tab, int R) {
+  const float cr0 = cross_ray(ur, uc, tab[0]);
+  float prev = cr0;
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int k = 0; k < R; ++k) {
+    const float nxt = (k == R - 1) ? cr0 : cross_ray(ur, uc, tab[k + 1]);
+    if (prev >= 0.0f && nxt < 0.0f) add_wedge(v, d, k, R, tab[k]);
+    prev = nxt;
+  }
+  return side(ur, uc, v);
+}
+
+// theta = atan2(ur, uc) in [-pi, pi] to within 0.004 rad, for u != 0: the
+// arctangent of z = min / max of |ur|, |uc| as pi/4 z + 0.273 z (1 - z),
+// moved to theta's octant
+__device__ __forceinline__ float theta_estimate(float ur, float uc) {
+  const float ar = fabsf(ur), ac = fabsf(uc);
+  const float z = __fdividef(fminf(ar, ac), fmaxf(ar, ac));
+  float a = z * (0.78539816f + 0.273f * (1.0f - z));
+  if (ar > ac) a = 1.57079633f - a;
+  if (uc < 0.0f) a = 3.14159265f - a;
+  return ur < 0.0f ? -a : a;
+}
+
+// Inside test of sample (qr, qc) against the star polygon with dists d[R]
+// about (pr, pc); rscale = R / (2 pi).
+__device__ __forceinline__ bool inside(const float* __restrict__ d, float pr, float pc,
+                                       float qr, float qc, const float4* tab, int R,
+                                       float rscale) {
+  const float ur = __fsub_rn(qr, pr);
+  const float uc = __fsub_rn(qc, pc);
+  const float m = fmaxf(fabsf(ur), fabsf(uc));
+  if (!(m >= U_LO && m < U_HI)) return inside_walk(d, ur, uc, tab, R);
+  // the wedge of theta, to within one
+  float t = theta_estimate(ur, uc) * rscale;
+  if (t < 0.0f) t += (float)R;
+  int k0 = (int)t;
+  if (k0 >= R) k0 -= R;
+  const int ka = k0 == 0 ? R - 1 : k0 - 1;
+  const int kc = k0 == R - 1 ? 0 : k0 + 1;
+  const int kd = kc == R - 1 ? 0 : kc + 1;
+  const float4 ta = tab[ka], tb = tab[k0], tc = tab[kc];
+  const float ca = cross_ray(ur, uc, ta);
+  const float cb = cross_ray(ur, uc, tb);
+  const float cc = cross_ray(ur, uc, tc);
+  const float cd = cross_ray(ur, uc, tab[kd]);
+  const bool ma = ca >= 0.0f && cb < 0.0f;
+  const bool mb = cb >= 0.0f && cc < 0.0f;
+  const bool mc = cc >= 0.0f && cd < 0.0f;
+  if ((int)ma + (int)mb + (int)mc != 1) return inside_walk(d, ur, uc, tab, R);
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  add_wedge(v, d, ma ? ka : mb ? k0 : kc, R, ma ? ta : mb ? tb : tc);
+  return side(ur, uc, v);
+}
+
 template <int S>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(THREADS)
 pair_kernel(const float* __restrict__ d_r, const float* __restrict__ p_r,
             const float* __restrict__ d_c, const float* __restrict__ p_c,
             const float* __restrict__ plo, const float* __restrict__ ext,
-            const float* __restrict__ trig, float* __restrict__ out, int P, int R) {
-  __shared__ float trig_s[4 * RMAX];
-  __shared__ float d_s[WARPS][2][RMAX];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int p = blockIdx.x * WARPS + warp;
-  for (int t = threadIdx.x; t < 4 * R; t += blockDim.x) trig_s[t] = trig[t];
-  if (p < P) {
-    for (int k = lane; k < R; k += 32) {
-      d_s[warp][0][k] = d_r[(size_t)p * R + k];
-      d_s[warp][1][k] = d_c[(size_t)p * R + k];
-    }
-  }
+            const float* __restrict__ trig, float* __restrict__ out, int P, int R,
+            float rscale) {
+  constexpr int L = S == 8 ? 16 : 32;  // lanes per pair
+  constexpr int G = 32 / L;            // pairs per warp step
+  constexpr int NS = S * S / L;        // samples per lane
+  __shared__ float4 tab[RMAX];
+  for (int k = threadIdx.x; k < R; k += THREADS)
+    tab[k] = make_float4(trig[k], trig[R + k], trig[2 * R + k], trig[3 * R + k]);
   __syncthreads();
-  if (p >= P) return;
 
-  const float prr = p_r[2 * p], prc = p_r[2 * p + 1];
-  const float pcr = p_c[2 * p], pcc = p_c[2 * p + 1];
-  const float lor = plo[2 * p], loc = plo[2 * p + 1];
-  const float exr = ext[2 * p], exc = ext[2 * p + 1];
-  int count = 0;
-  for (int i = lane; i < S * S; i += 32) {
-    const float gr = __fdiv_rn(__fadd_rn((float)(i / S), 0.5f), (float)S);
-    const float gc = __fdiv_rn(__fadd_rn((float)(i % S), 0.5f), (float)S);
-    const float qr = __fadd_rn(lor, __fmul_rn(gr, exr));
-    const float qc = __fadd_rn(loc, __fmul_rn(gc, exc));
-    const bool in_r = inside(d_s[warp][0], prr, prc, qr, qc, trig_s, R);
-    const bool in_c = inside(d_s[warp][1], pcr, pcc, qr, qc, trig_s, R);
-    count += (in_r && in_c) ? 1 : 0;
-  }
+  const int lane = threadIdx.x % 32;
+  const int sub = lane / L;
+  const int gl = lane % L;
+  const int stride = gridDim.x * WARPS * G;
+  // warp-uniform loop: every lane reaches the shuffles
+  for (int base = (blockIdx.x * WARPS + threadIdx.x / 32) * G; base < P; base += stride) {
+    const int p = base + sub;
+    int count = 0;
+    if (p < P) {
+      const float prr = __ldg(p_r + 2 * p), prc = __ldg(p_r + 2 * p + 1);
+      const float pcr = __ldg(p_c + 2 * p), pcc = __ldg(p_c + 2 * p + 1);
+      const float lor = __ldg(plo + 2 * p), loc = __ldg(plo + 2 * p + 1);
+      const float exr = __ldg(ext + 2 * p), exc = __ldg(ext + 2 * p + 1);
+      const float* dr = d_r + (size_t)p * R;
+      const float* dc = d_c + (size_t)p * R;
+#pragma unroll 1
+      for (int j = 0; j < NS; ++j) {
+        const int i = gl + j * L;
+        const float gr = __fmul_rn(__fadd_rn((float)(i / S), 0.5f), 1.0f / S);
+        const float gc = __fmul_rn(__fadd_rn((float)(i % S), 0.5f), 1.0f / S);
+        const float qr = __fadd_rn(lor, __fmul_rn(gr, exr));
+        const float qc = __fadd_rn(loc, __fmul_rn(gc, exc));
+        if (inside(dr, prr, prc, qr, qc, tab, R, rscale) &&
+            inside(dc, pcr, pcc, qr, qc, tab, R, rscale))
+          ++count;
+      }
+    }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    count += __shfl_down_sync(0xffffffffu, count, off);
-  if (lane == 0) out[p] = __fdiv_rn((float)count, (float)(S * S));
+    for (int off = L / 2; off > 0; off >>= 1)
+      count += __shfl_xor_sync(0xffffffffu, count, off);
+    if (gl == 0 && p < P) out[p] = __fdiv_rn((float)count, (float)(S * S));
+  }
+}
+
+// Blocks of the persistent grid: as many as fit on the card at once.
+template <int S>
+cudaError_t resident_blocks(int* blocks) {
+  static int cached[MAX_DEVICES] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && cached[dev] > 0) {
+    *blocks = cached[dev];
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pair_kernel<S>, THREADS, 0);
+  if (err != cudaSuccess) return err;
+  *blocks = sms * (per_sm > 0 ? per_sm : 1);
+  if (dev < MAX_DEVICES) cached[dev] = *blocks;
+  return cudaSuccess;
+}
+
+template <int S>
+int launch(const float* const* a, float* o, int P, int R, cudaStream_t s) {
+  int blocks = 0;
+  cudaError_t err = resident_blocks<S>(&blocks);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int per_block = WARPS * (S == 8 ? 2 : 1);
+  const int needed = (P + per_block - 1) / per_block;
+  const float rscale = (float)(R / 6.283185307179586);
+  pair_kernel<S><<<needed < blocks ? needed : blocks, THREADS, 0, s>>>(
+      a[0], a[1], a[2], a[3], a[4], a[5], a[6], o, P, R, rscale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -127,19 +241,13 @@ extern "C" int pair_frac_f32(const void* d_r, const void* p_r, const void* d_c,
                              const void* trig, void* out, int P, int R, int S,
                              void* stream) {
   if (P <= 0 || R < 3 || R > RMAX) return (int)cudaErrorInvalidValue;
-  const dim3 grid((P + WARPS - 1) / WARPS);
-  const dim3 block(WARPS * 32);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* a[7] = {static_cast<const float*>(d_r), static_cast<const float*>(p_r),
                        static_cast<const float*>(d_c), static_cast<const float*>(p_c),
                        static_cast<const float*>(plo), static_cast<const float*>(ext),
                        static_cast<const float*>(trig)};
   float* o = static_cast<float*>(out);
-  if (S == 8)
-    pair_kernel<8><<<grid, block, 0, s>>>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], o, P, R);
-  else if (S == 16)
-    pair_kernel<16><<<grid, block, 0, s>>>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], o, P, R);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (S == 8) return launch<8>(a, o, P, R, s);
+  if (S == 16) return launch<16>(a, o, P, R, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -19,9 +19,15 @@ def ray_angles(n_rays=32):
     return np.linspace(0, 2 * np.pi, n_rays, endpoint=False)
 
 
-def dist_to_coord(dist, points):
+def _check_scale_dist(scale_dist):
+    if tuple(scale_dist) != (1, 1):
+        raise NotImplementedError("scale_dist other than (1, 1) is not ported yet")
+
+
+def dist_to_coord(dist, points, scale_dist=(1, 1)):
     """Polar to cartesian (numpy): (n_polys, n_rays), (n_polys, 2) ->
     (n_polys, 2, n_rays)."""
+    _check_scale_dist(scale_dist)
     dist = np.asarray(dist)
     points = np.asarray(points)
     assert dist.ndim == 2 and points.ndim == 2 and len(dist) == len(points) \
@@ -41,11 +47,16 @@ def render_order(prob):
     return order
 
 
-def polygons_to_label(dist, points, shape, prob=None, out_dtype=torch.int32, device="cuda"):
+def polygons_to_label(dist, points, shape, prob=None, thr=-np.inf, scale_dist=(1, 1), *,
+                      out_dtype=torch.int32, device="cuda"):
     """Label image of star polygons. Tensors in -> a tensor on their device
     (int32, or ``out_dtype=torch.uint16`` when there are fewer than 2^16 - 1
     polygons); numpy in -> numpy int32, drawn on ``device`` (the card unless
-    the caller passes ``device="cpu"``)."""
+    the caller passes ``device="cpu"``). ``thr`` and ``scale_dist`` are not
+    ported yet: other values than their defaults raise."""
+    if thr != -np.inf:
+        raise NotImplementedError("polygons_to_label(thr=...) is not ported yet")
+    _check_scale_dist(scale_dist)
     as_numpy = not isinstance(dist, torch.Tensor)
     dist = as_tensor_on(dist, device)
     dev = dist.device

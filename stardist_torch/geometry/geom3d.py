@@ -17,7 +17,7 @@ from ..utils import as_tensor_on
 
 
 def polyhedron_to_label(dist, points, rays, shape, prob=None, thr=-np.inf, labels=None,
-                        mode="full", verbose=True, overlap_label=None, device="cuda"):
+                        mode="full", verbose=True, overlap_label=None, *, device="cuda"):
     """Label volume of star polyhedra. dist (n, n_rays), points (n, 3).
     Tensors in -> int32 tensor on their device; numpy in -> numpy int32,
     drawn on ``device`` (the card unless the caller passes ``device="cpu"``).

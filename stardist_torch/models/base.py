@@ -113,7 +113,7 @@ class StarDistBase:
     ``device`` is where the network and every later stage run; it is never
     changed behind the caller's back. ``inference_dtype`` is "bfloat16" (the
     default on CUDA: the conv kernel's type) or "float32" (the default on
-    CPU; on CUDA only through the plain convs)."""
+    CPU); see :meth:`set_inference_precision`."""
 
     def __init__(self, config=None, name=None, basedir=".", device="cuda",
                  inference_dtype=None):
@@ -130,10 +130,10 @@ class StarDistBase:
                 config = self._config_class(**json.load(f))
         self.config = config
         self.name = name
+        self.net = StarDistNet(config)
         if inference_dtype is None:
             inference_dtype = "bfloat16" if self.device.type == "cuda" else "float32"
-        dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[inference_dtype]
-        self.net = StarDistNet(config, dtype=dtype)
+        self.set_inference_precision(inference_dtype)
 
         if loading:
             weights = self._weights_file()
@@ -154,6 +154,21 @@ class StarDistBase:
             prob=prob if prob is not None and 0 < prob < 1 else 0.5,
             nms=nms if nms is not None and 0 < nms < 1 else 0.4)
         self.net.to(self.device)
+
+    def set_inference_precision(self, dtype):
+        """``dtype``: None or "float32" (full precision) or "bfloat16"
+        (reference base.py:1101-1106). A float32 net runs every conv through
+        its plain PyTorch version, on CUDA too: that is the float32 route,
+        taken from the net's type (``StarDistNet.forward``); the conv kernels
+        take bfloat16 only. On CUDA those convs follow PyTorch's TF32 switch,
+        ``torch.backends.cudnn.allow_tf32``."""
+        if dtype == "float32":
+            dtype = None
+        if dtype not in (None, "bfloat16"):
+            raise ValueError(f"inference precision must be None, 'float32' or 'bfloat16', "
+                             f"got {dtype!r}")
+        self.inference_dtype = dtype
+        self.net.dtype = torch.float32 if dtype is None else torch.bfloat16
 
     @property
     def logdir(self):
@@ -322,7 +337,23 @@ class StarDistBase:
         return vals, d, points
 
     def predict_sparse(self, img, prob_thresh=None, axes=None, normalizer=None,
-                       n_tiles=None, b=2, timings=None):
+                       n_tiles=None, show_tile_progress=True, b=2, max_candidates=None,
+                       device_dist=False):
+        """Sparse prediction (reference base.py:1375-1477): numpy (prob (K,)
+        float32, dist (K, R) float32, points (K, n_dim) int64), points in
+        full-resolution pixels; see :meth:`_predict_sparse`.
+        ``show_tile_progress`` shows nothing, as in the reference;
+        ``max_candidates`` and ``device_dist`` are not ported."""
+        if max_candidates is not None:
+            raise NotImplementedError("predict_sparse(max_candidates=...) is not ported yet")
+        if device_dist:
+            raise NotImplementedError("predict_sparse(device_dist=True) is not ported: "
+                                      "predict_instances keeps the candidates on the device")
+        return tuple(t.cpu().numpy() for t in self._predict_sparse(
+            img, prob_thresh, axes, normalizer, n_tiles, b))
+
+    def _predict_sparse(self, img, prob_thresh=None, axes=None, normalizer=None,
+                        n_tiles=None, b=2, timings=None):
         """Sparse prediction: (prob (K,), dist (K, R), points (K, n_dim))
         tensors on ``self.device``; points in full-resolution pixels.
 
@@ -416,14 +447,26 @@ class StarDistBase:
         prob, dist = self.net(self._upload(x))
         return prob.cpu().numpy()[..., None], np.moveaxis(dist.cpu().numpy(), 0, -1)
 
-    def predict_instances(self, img, axes=None, normalizer=None, prob_thresh=None,
-                          nms_thresh=None, n_tiles=None, show_tile_progress=True, b=2,
-                          return_labels=True, verbose=False):
-        """Predict -> NMS -> rasterize. Returns (labels (*sp) int32 numpy,
-        details dict: the survivors (see the model's ``_render_survivors``),
+    def predict_instances(self, img, axes=None, normalizer=None, sparse=True, prob_thresh=None,
+                          nms_thresh=None, scale=None, n_tiles=None, show_tile_progress=True,
+                          verbose=False, return_labels=True, predict_kwargs=None,
+                          nms_kwargs=None, overlap_label=None, return_predict=False, *, b=2):
+        """Predict -> NMS -> rasterize, with the reference's parameters
+        (base.py:1479-1571). Returns (labels (*sp) int32 numpy, details
+        dict: the survivors (see the model's ``_render_survivors``),
         ``nms_counters`` and the stage times ``timings_s``). ``img`` and
-        ``n_tiles`` as in :meth:`predict_sparse`; ``show_tile_progress`` as
-        in :meth:`predict`."""
+        ``n_tiles`` as in :meth:`_predict_sparse`; ``show_tile_progress`` as
+        in :meth:`predict`; ``b`` is the candidates' border. The parameters
+        that would change the result and are not ported yet raise
+        ``NotImplementedError`` when set: ``sparse=False``, ``scale``,
+        ``predict_kwargs``, ``nms_kwargs``, ``overlap_label`` and
+        ``return_predict``."""
+        unported = {"sparse": not sparse, "scale": scale is not None,
+                    "predict_kwargs": bool(predict_kwargs), "nms_kwargs": bool(nms_kwargs),
+                    "overlap_label": overlap_label is not None, "return_predict": return_predict}
+        for name, is_set in unported.items():
+            if is_set:
+                raise NotImplementedError(f"predict_instances({name}=...) is not ported yet")
         return self._predict_instances(img, axes, normalizer, prob_thresh, nms_thresh,
                                        n_tiles, b, return_labels, verbose)
 
@@ -438,7 +481,7 @@ class StarDistBase:
             x_shape = move_image_axes(img, _axes, self.config.axes, adjust_singletons=True).shape
             shape_inst = tuple(s for s, a in zip(x_shape, self.config.axes) if a != "C")
         timings = {}
-        prob, dist, points = self.predict_sparse(
+        prob, dist, points = self._predict_sparse(
             img, prob_thresh=prob_thresh, axes=axes, normalizer=normalizer,
             n_tiles=n_tiles, b=b, timings=timings)
         labels, details = self._instances_from_prediction(

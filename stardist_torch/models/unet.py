@@ -68,7 +68,8 @@ class StarDistNet(nn.Module):
 
     ``dtype`` is the activation type of the convs: ``torch.bfloat16`` (the
     CUDA kernel's type and the reference's TPU inference type) or
-    ``torch.float32`` (plain convs only: on CPU, or with ``plain=True``)."""
+    ``torch.float32``, whose convs are always the plain PyTorch versions
+    (on CUDA too: the kernels take bfloat16 only)."""
 
     def __init__(self, config, dtype=torch.float32):
         super().__init__()
@@ -159,7 +160,9 @@ class StarDistNet(nn.Module):
         """x (*sp, C_in) -> prob (*sp') f32, dist (R, *sp') f32.
 
         ``plain=True`` runs every conv through its plain PyTorch version
-        (the reference the kernel path is checked against)."""
+        (the reference the kernel path is checked against); a float32 net
+        always does."""
+        plain = plain or self.dtype == torch.float32
         h = x.to(self.dtype)
         top = iter(self.top)
         for p in self.prepools:

@@ -21,9 +21,12 @@ def descending_order(prob):
     return torch.flip(torch.sort(prob, stable=True).indices, dims=(0,))
 
 
-def non_maximum_suppression_sparse(dist, prob, points, b=2, nms_thresh=0.5,
-                                   verbose=False, stats=None, device="cuda"):
-    """NMS from sparse candidate lists.
+def non_maximum_suppression_sparse(dist, prob, points, b=2, nms_thresh=0.5, use_bbox=True,
+                                   use_kdtree=True, verbose=False, *, stats=None,
+                                   device="cuda"):
+    """NMS from sparse candidate lists (``b``, ``use_bbox`` and
+    ``use_kdtree`` are taken for calls written for the reference and change
+    nothing, as there).
 
     Returns (points, prob, dist, inds_original) of the survivors, in
     descending-prob order."""
@@ -46,11 +49,13 @@ def non_maximum_suppression_sparse(dist, prob, points, b=2, nms_thresh=0.5,
     return out
 
 
-def non_maximum_suppression_inds(dist, points, scores, thresh=0.5, stats=None,
-                                 device="cuda"):
+def non_maximum_suppression_inds(dist, points, scores, thresh=0.5, use_bbox=True,
+                                 use_kdtree=True, verbose=1, *, stats=None, device="cuda"):
     """Greedy NMS over score-sorted polygons: P1 suppresses P2 if
     overlap(P1, P2) = A_inter / min(A1, A2) > thresh. Returns bool survivors
-    (a tensor for tensor input, else a numpy array)."""
+    (a tensor for tensor input, else a numpy array). ``use_bbox``,
+    ``use_kdtree`` and ``verbose`` are taken for calls written for the
+    reference and change nothing."""
     as_numpy = not isinstance(dist, torch.Tensor)
     dist = as_tensor_on(dist, device)
     points = as_tensor_on(points, dist.device)
@@ -61,8 +66,10 @@ def non_maximum_suppression_inds(dist, points, scores, thresh=0.5, stats=None,
 
 
 def non_maximum_suppression_3d_sparse(dist, prob, points, rays, b=2, nms_thresh=0.5,
-                                      verbose=False, stats=None, device="cuda"):
-    """NMS from sparse 3D candidate lists (``rays``: the model's ``Rays``).
+                                      use_kdtree=True, verbose=False, *, stats=None,
+                                      device="cuda"):
+    """NMS from sparse 3D candidate lists (``rays``: the model's ``Rays``;
+    ``b`` and ``use_kdtree`` change nothing, as in the reference).
 
     Returns (points, prob, dist, inds_original) of the survivors, in
     descending-prob order."""
@@ -86,13 +93,14 @@ def non_maximum_suppression_3d_sparse(dist, prob, points, rays, b=2, nms_thresh=
     return out
 
 
-def non_maximum_suppression_3d_inds(dist, points, rays, scores, thresh=0.5, stats=None,
-                                    device="cuda"):
+def non_maximum_suppression_3d_inds(dist, points, rays, scores, thresh=0.5, use_bbox=True,
+                                    use_kdtree=True, verbose=1, *, stats=None, device="cuda"):
     """Greedy NMS over 3D star polyhedra, sorted here by ``scores`` (the
     reference sorts again even when :func:`non_maximum_suppression_3d_sparse`
     has sorted already, which puts equal scores back in ascending list
     order). Returns bool survivors in the given order (a tensor for tensor
-    input, else a numpy array)."""
+    input, else a numpy array). ``use_bbox``, ``use_kdtree`` and ``verbose``
+    change nothing."""
     as_numpy = not isinstance(dist, torch.Tensor)
     dist = as_tensor_on(dist, device)
     points = as_tensor_on(points, dist.device)

@@ -187,8 +187,9 @@ def _greedy_fixpoint(N, i, j, sup, keep):
         keep = new
 
 
-def _cascade(dist, points, lo, hi, area, i, j, thresh):
-    """Sampled-cascade verdicts (bool) for the pairs (i, j)."""
+def _cascade(dist, points, lo, hi, area, i, j, thresh, counts):
+    """Sampled-cascade verdicts (bool) for the pairs (i, j); adds the number
+    of pairs that the S = 16 grid decides to ``counts["n_fine_pairs"]``."""
     plo = torch.maximum(lo[i], lo[j])
     ext = torch.clamp_min(torch.minimum(hi[i], hi[j]) - plo, 0.0)
     fstar = (thresh * (torch.minimum(area[i], area[j]) + 1e-10)
@@ -197,6 +198,7 @@ def _cascade(dist, points, lo, hi, area, i, j, thresh):
     frac8 = pair_frac(d_r, p_r, d_c, p_c, plo, ext, S=CASCADE_S)
     sup = frac8 > fstar
     fine = torch.nonzero(torch.abs(frac8 - fstar) < CASCADE_MARGIN).flatten()
+    counts["n_fine_pairs"] += fine.numel()
     if fine.numel():
         frac16 = pair_frac(d_r[fine], p_r[fine], d_c[fine], p_c[fine],
                            plo[fine], ext[fine], S=16)
@@ -209,7 +211,9 @@ def nms_polygons(dist, points, thresh=0.5, stats=None):
 
     dist (N, R) f32, points (N, 2) (full-resolution row, col), both sorted
     by descending score and on one device. Returns keep (N,) bool on that
-    device. ``stats``, if a dict, receives pair counts."""
+    device. ``stats``, if a dict, receives pair counts: bbox pairs, exact
+    pairs (the S = 8 grid), those of them that the S = 16 grid decides, and
+    rounds."""
     N = dist.shape[0]
     dev = dist.device
     if N <= 1:
@@ -239,11 +243,12 @@ def nms_polygons(dist, points, thresh=0.5, stats=None):
         sup = lb > thresh
         amb = ~sup & ~(ub <= thresh)
 
+    counts = {"n_fine_pairs": 0}
     keep, n_eval, n_rounds = _resolve(N, i, j, sup, amb, lambda t: _cascade(
-        dist, points, lo, hi, area, i[t], j[t], thresh))
+        dist, points, lo, hi, area, i[t], j[t], thresh, counts))
     if stats is not None:
         stats.update(n_candidates=N, n_pairs=int(i.numel()), n_eval_pairs=n_eval,
-                     n_rounds=n_rounds, n_survivors=int(keep.sum().item()))
+                     n_rounds=n_rounds, n_survivors=int(keep.sum().item()), **counts)
     return keep
 
 

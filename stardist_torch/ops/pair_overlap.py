@@ -3,14 +3,16 @@
 
 For a flat list of P pairs, the fraction of an S x S midpoint grid over the
 pair's bbox intersection (``plo``, ``ext``) that lies inside both polygons.
-On CUDA tensors it runs in ``csrc/pair_overlap.cu`` (one warp per pair); on
-CPU tensors in :func:`pair_frac_plain`, which follows the TPU kernel's
-``_inside_body`` step for step (the cross-product wedge rule), so that the
-two agree bit for bit.
+On CUDA tensors it runs in ``csrc/pair_overlap.cu`` (a wedge lookup per
+sample, 16 or 32 lanes per pair); on CPU tensors in :func:`pair_frac_plain`,
+which follows the TPU kernel's ``_inside_body`` step for step (the
+cross-product wedge rule, a walk over every wedge), so that the two agree
+bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -25,9 +27,11 @@ KERNEL = CudaKernel(
 _PLAIN_CHUNK = 4096  # pairs per step of the plain version (bounds its memory)
 
 
+@functools.lru_cache(maxsize=None)
 def trig_table(R, device=None):
     """(4, R) f32 [sin phi_k, cos phi_k, sin phi_k+1, cos phi_k+1]: numpy f64
-    trig cast to f32, the constants the TPU kernel bakes in."""
+    trig cast to f32, the constants the TPU kernel bakes in; made once per
+    (R, device), so that a kernel call copies nothing to the card."""
     dphi = 2 * np.pi / R
     angles = np.arange(R) * dphi
     t = np.stack([np.sin(angles), np.cos(angles),

@@ -160,9 +160,14 @@ def _pairs(P, R, dev, seed):
 
 
 @pytest.mark.parametrize("S", [8, 16])
-@pytest.mark.parametrize("R", [32, 16, 64])
+@pytest.mark.parametrize("R", [32, 16, 64, 3, 128])
 def test_pair_kernel_matches_plain(cuda_device, S, R):
-    args = _pairs(20000, R, cuda_device, S + R)
+    """Random pairs, and pairs whose samples sit where the kernel's wedge
+    lookup is most likely to go wrong (on a ray, +-1 ulp off it, at the
+    centre, |u| tiny or huge, theta near +-pi)."""
+    from chip_smoke import adversarial_pairs
+    args = [torch.cat(ts) for ts in zip(_pairs(20000, R, cuda_device, S + R),
+                                         adversarial_pairs(R, cuda_device))]
     n0 = tpo.KERNEL.launches
     got = tpo.pair_frac(*args, S=S)
     torch.cuda.synchronize()
@@ -217,6 +222,29 @@ def _nuclei3d(shape, n, seed):
     img = gaussian_filter((lbl > 0).astype(np.float32), 1.0)
     img += 0.05 * rng.normal(size=shape).astype(np.float32)
     return img.astype(np.float32), lbl
+
+
+def test_float32_model_runs_the_plain_convs_on_the_card(cuda_device):
+    """inference_dtype="float32" on the card: no conv kernel launches (the
+    f32 route is the plain convs, chosen by the net's type), the pair and
+    raster kernels still launch, and the labels agree with the CPU port."""
+    img, lbl = _nuclei((256, 320), 40, 0)
+    gm = StarDist2D(None, "2D_demo", "models/examples", device=cuda_device,
+                    inference_dtype="float32")
+    n_conv, n_pair, n_raster = tconv.KERNEL.launches, tpo.KERNEL.launches, trt.KERNEL.launches
+    lab, _ = gm.predict_instances(img)
+    torch.cuda.synchronize()
+    assert tconv.KERNEL.launches == n_conv
+    assert tpo.KERNEL.launches > n_pair and trt.KERNEL.launches > n_raster
+    cm = StarDist2D(None, "2D_demo", "models/examples", device="cpu")
+    lab_cpu, _ = cm.predict_instances(img)
+    # f32 on both: only the sums' order differs
+    assert matching(lab_cpu, lab, thresh=0.5).accuracy >= 0.99
+    assert matching(lbl, lab, thresh=0.5).accuracy >= 0.8
+    # and back to bfloat16: one kernel launch per conv
+    gm.set_inference_precision("bfloat16")
+    gm.predict_instances(img)
+    assert tconv.KERNEL.launches == n_conv + len(gm.net.conv_blocks())
 
 
 def test_predict_instances_3d_on_card_agrees_with_cpu(cuda_device):

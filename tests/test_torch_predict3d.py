@@ -83,11 +83,12 @@ def test_predict_instances_detects_nuclei(setup, predicted):
 def test_predict_sparse_candidates_match_reference(setup):
     img, _, _, tm, (prob_ref, _, points_ref), _ = setup
     prob, dist, points = tm.predict_sparse(img)
+    assert all(isinstance(a, np.ndarray) for a in (prob, dist, points))
     assert len(prob) == len(prob_ref)
-    assert torch.all(prob[:-1] >= prob[1:]) and torch.all(dist >= 1e-3)
+    assert np.all(prob[:-1] >= prob[1:]) and np.all(dist >= 1e-3)
     # the same candidate set (positions), in full-resolution voxels
     key = lambda p: np.sort((p[:, 0] * 1000 + p[:, 1]) * 1000 + p[:, 2])  # noqa: E731
-    assert np.array_equal(key(points.numpy()), key(points_ref))
+    assert np.array_equal(key(points), key(points_ref))
 
 
 def test_ragged_volume_and_border(setup):
@@ -113,7 +114,7 @@ def test_ragged_volume_and_border(setup):
     # candidates of a border-excluded call stay inside the border
     _, _, p_b = tm.predict_sparse(img, b=((1, 3), (0, 2), (4, 1)), prob_thresh=0.1)
     g = np.array(tm.config.grid)
-    p_out = p_b.numpy() // g
+    p_out = p_b // g
     shape_out = np.array(x.shape[:3]) // g
     assert (p_out >= [1, 0, 4]).all() and (p_out < shape_out - [3, 2, 1]).all()
 

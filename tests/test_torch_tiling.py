@@ -96,7 +96,7 @@ def test_tiled_predict_sparse_gives_the_reference_candidates(models2d):
     prob_ref, _, points_ref = jm.predict_sparse(img, n_tiles=(2, 2))
     assert len(prob) == len(prob_ref) > 1000
     key = lambda p: np.sort(p[:, 0] * 100000 + p[:, 1])  # noqa: E731
-    assert np.array_equal(key(points.numpy()), key(points_ref))
+    assert np.array_equal(key(points), key(points_ref))
 
 
 @pytest.mark.parametrize("n_tiles", [(2, 2), (3, 1)])
