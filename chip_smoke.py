@@ -27,8 +27,8 @@ Phases (each prints one line; any failed check exits non-zero):
       launch counts of the conv, pair and raster kernels, the exact pairs
       at S = 8 and at S = 16, and the pair kernel's bound for them; one
       nms_polygons call on the same candidates split by torch.profiler
-      (nms_profile); then 1024^2 on the card against the same call on the
-      CPU;
+      (nms_profile), and the raster stage split (raster_split); then 1024^2
+      on the card against the same call on the CPU;
   (f) conv3d kernel vs its plain version at every layer shape of the
       full-width StarDist 3D forward (Config3D(grid=(1, 2, 2)), 96 rays,
       depth 2, 32 filters) on a 64x512x512 volume; times, the cuDNN
@@ -40,12 +40,14 @@ Phases (each prints one line; any failed check exits non-zero):
       stage times, counts, AP@0.1 against the field's ground truth, the
       conv3d launch count; then a 32x96x96 crop on the card against the
       same call on the CPU;
-  (i) raster kernel vs its plain version on two seeded polygon fields (the
-      4096^2 bench-shaped field, ~7k polygons, and a dense 2048^2 field of
-      60k overlapping ones): labels must be exactly equal; times of the
-      kernel, the plain version and the atan2 splat (the CUDA raster before
-      the kernel), by CUDA events, and the bound of the kernel's work
-      counted from the field;
+  (i) raster kernel vs its plain version on three seeded polygon fields (the
+      4096^2 bench-shaped field, ~7k polygons; a dense 2048^2 field of 60k
+      overlapping ones; an adversarial 2048^2 field, adversarial_polygons):
+      labels must be exactly equal, with the 32- and the 64-bit packing and
+      int32 and uint16 output; times of the kernel + memset and of the call
+      (both packings) and of the plain version, by CUDA events, and the
+      bound of the function counted from the field; then 66k polygons, more
+      than the 32-bit packing holds, equal too;
   (j) StarDist2D.predict_instances_device (2D_demo, 2048^2): labels and
       survivors must equal predict_instances on the card exactly, for a
       numpy and a pre-staged CUDA tensor input; walls with fetch=True and
@@ -60,7 +62,7 @@ Phases (each prints one line; any failed check exits non-zero):
       two differ: the differing pixels and survivors, in all and within
       the tiles' overlap band around a seam, and the dense prediction's
       largest differences, tiled against untiled; and the untiled call's
-      nms_polygons split by torch.profiler.
+      nms_polygons split by torch.profiler and its raster stage split.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. With --phases, only (a) and the named phases
 run (e.g. --phases k to time the tiled call alone), and neither line is
@@ -92,6 +94,8 @@ FWD3D_SHAPE = (64, 512, 512)   # full-width 3D forward input, (f) and (g)
 E2E3D_SHAPE = (64, 256, 256)   # 3D predict_instances field on the card, (h)
 CMP3D_SHAPE = (32, 96, 96)     # card vs CPU comparison crop, (h)
 RASTER_FIELDS = ((4096, 7000), (2048, 60_000))  # (i): (image side, polygons)
+RASTER_ADVERSARIAL = (2048, 200)  # (i): image side, polygons of each adversarial kind
+RASTER_MANY = (2048, 66_000)      # (i): more polygons than the 32-bit packing holds
 TILED_SIZE = 4096                # (k)
 ALL_PHASES = "bcdefghijk"        # (a) runs always
 # one H100 SXM (NVIDIA's data sheet, dense, at the 700 W limit): bf16 tensor
@@ -547,7 +551,7 @@ def nms_profile(model, img, pair_kernel, n_top=8):
             f"top CUDA ops by device time: {top}")
 
 
-def phase_e(dev, kernels, matching, StarDist2D):
+def phase_e(dev, kernels, matching, StarDist2D, rt):
     model = StarDist2D(None, "2D_demo", "models/examples", device=dev)
     img, lbl = synthetic_nuclei((E2E_SIZE, E2E_SIZE), seed=123)
     model.predict_instances(img)                       # warm-up: allocator, caches
@@ -574,6 +578,8 @@ def phase_e(dev, kernels, matching, StarDist2D):
           f"{launches}; the pair kernel's bound for these exact pairs at S=8: {b_pair:.4f} ms "
           f"({b_pair_by}), at S=16: {b_fine:.4f} ms ({b_fine_by})", flush=True)
     print(f"(e) nms_polygons at {E2E_SIZE}^2, split: {nms_profile(model, img, kernels['pair'])}", flush=True)
+    print(f"(e) raster stage at {E2E_SIZE}^2 (stage {t['raster'] * 1e3:.3f} ms in the call "
+          f"above), split: {raster_split(model, details, img.shape, rt)}", flush=True)
 
     img1, _ = synthetic_nuclei((CMP_SIZE, CMP_SIZE), seed=123)
     lab_gpu, _ = model.predict_instances(img1)
@@ -676,6 +682,60 @@ def polygon_field(n, size, seed, n_rays=32, r_range=(7, 14)):
             rng.permutation(n) + 1, rng.permutation(n))
 
 
+def adversarial_polygons(shape, R, seed, big, n_each=8):
+    """Seeded star polygons where the raster kernel's wedge lookup and box
+    are most likely to go wrong: integer and half-integer centres (rows of
+    pixels with ur = 0 or uc = 0); for every ray, a pixel on it and +-1 ulp
+    off it; centres 1e-30 from row or column 0 (the last wedge ends within
+    1.2e-15 rad of ray 0); dists of 0 (one, or all), of 1e-3 beside 10 and
+    beside ``big`` (the polygon that sets the window), all equal, and
+    integers about an integer centre (vertices on ray 0 on pixels); centres
+    across and beyond each border. Order values a permutation
+    (1-based), labels a permutation."""
+    rng = np.random.RandomState(seed)
+    H, W = shape
+    ang = np.arange(R) * (2 * np.pi / R)
+    ray = np.stack([np.sin(ang), np.cos(ang)], 1).astype(np.float32)
+    pts, dists = [], []
+
+    def add(p, d=None):
+        pts.append(np.asarray(p, np.float32))
+        dists.append(rng.uniform(4, 12, R) if d is None else d)
+
+    for _ in range(4 * n_each):
+        add(rng.randint(-6, (H + 6, W + 6)) + rng.choice([0.0, 0.5], 2))
+    for k in range(R):
+        p = rng.randint(0, (H, W)).astype(np.float32) - np.float32(rng.uniform(2, 9)) * ray[k]
+        add(p)
+        for ax in (0, 1):
+            for to in (np.inf, -np.inf):
+                q = p.copy()
+                q[ax] = np.nextafter(q[ax], np.float32(to))
+                add(q)
+    for e in (1e-30, -1e-30):
+        for _ in range(n_each // 2):
+            add((e, rng.randint(0, W)))
+            add((rng.randint(0, H), e))
+    for _ in range(n_each):
+        c = rng.randint(0, (H, W)).astype(np.float32)
+        d = rng.uniform(4, 12, R)
+        d[rng.randint(R)] = 0.0
+        add(c, d)
+        d = np.full(R, 10.0)
+        d[::2] = 1e-3
+        add(c + 0.25, d)
+        add(c - 0.5, np.full(R, 6.0))
+        add(c + 1, rng.randint(3, 12, R).astype(np.float64))   # vertices on pixels
+    add(rng.randint(0, (H, W)), np.zeros(R))
+    d = np.full(R, 8.0)
+    d[::3] = 1e-3
+    d[1] = big
+    add(rng.randint(0, (H, W)) + 0.5, d)
+    n = len(pts)
+    return (np.stack(dists).astype(np.float32), np.stack(pts), rng.permutation(n) + 1,
+            rng.permutation(n))
+
+
 def raster_bound(rt, d, p, shape, o, lab):
     """Bound of the raster kernel's function on this field, counted from its
     data: every drawn polygon tests the pixels of its bounding box (its
@@ -699,50 +759,112 @@ def raster_bound(rt, d, p, shape, o, lab):
     return bound(pixels * inside_test_ops(R) + N * 2 * R, nbytes, PEAK_F32)
 
 
-def phase_i(dev, rt, splat):
-    """Raster kernel vs its plain version (exact) and the atan2 splat."""
-    out = []
-    for k, (size, n) in enumerate(RASTER_FIELDS):
-        d, p, o, lab = (torch.from_numpy(np.asarray(a)).to(dev)
-                        for a in polygon_field(n, size, seed=11 + k))
-        shape = (size, size)
-        got = rt.rasterize_polygons_tiles_cuda(d, p, shape, o, lab)
-        ref = rt.rasterize_polygons_tiles_plain(d, p, shape, o, lab)
-        spl = splat(d, p, shape, o, lab)
-        torch.cuda.synchronize()
-        n_diff = int((got != ref).sum().item())
-        err = int((got.long() - ref.long()).abs().max().item())
-        check(n_diff == 0, f"raster kernel differs from plain on {n_diff} pixels ({n} polygons)")
-        n_splat = int((got != spl).sum().item())
-        fg = int((got > 0).sum().item())
-        del ref, spl
-        # the kernel alone: inputs set up once, the memset and one launch per run
-        feats, pts, origin, packed, window = rt._setup(d, p, shape, o, lab)
-        trig = rt._tables(d.shape[1], d.device)[1]
-        img = torch.empty(size * size, dtype=torch.int64, device=dev)
-
-        def kernel_only():
-            img.zero_()
-            rt.KERNEL.launch(*(ctypes.c_void_p(t.data_ptr())
-                               for t in (feats, pts, origin, packed, trig, img)),
-                             n, d.shape[1], size, size, window, rt.stream_ptr(dev))
-
-        t_kern = cuda_ms(kernel_only, iters=10)
-        t_call = cuda_ms(lambda: rt.rasterize_polygons_tiles_cuda(d, p, shape, o, lab), iters=10)
-        t_plain = cuda_ms(lambda: rt.rasterize_polygons_tiles_plain(d, p, shape, o, lab), iters=1)
-        t_splat = cuda_ms(lambda: splat(d, p, shape, o, lab), iters=1)
-        b_ms, b_by = raster_bound(rt, d, p, shape, o, lab)
-        out.append(dict(size=size, n=n, n_diff=n_diff, err=err, ms=t_call, kernel_ms=t_kern,
-                        plain_ms=t_plain, splat_ms=t_splat, bound_ms=b_ms, bound_by=b_by))
-        print(f"(i) raster {size}^2, {n} polygons (window {window}, {fg} foreground pixels): "
-              f"kernel == plain ({n_diff} differing pixels; {n_splat} differ from the atan2 "
-              f"splat); call {t_call:.3f} ms (kernel + memset alone {t_kern:.3f} ms), plain "
-              f"{t_plain:.2f} ms, atan2 splat {t_splat:.2f} ms; bound of the function on "
-              f"this field {b_ms:.4f} ms ({b_by}), kernel + memset at "
-              f"{100 * b_ms / t_kern:.1f}% of it",
-              flush=True)
-        del feats, pts, origin, packed, img, got
+def raster_fields():
+    """(i)'s fields: (name, shape, dist, points, order values, labels) as
+    numpy, seeded."""
+    out = [(f"{n} polygons at {size}^2", (size, size), *polygon_field(n, size, seed=11 + k))
+           for k, (size, n) in enumerate(RASTER_FIELDS)]
+    size, n_each = RASTER_ADVERSARIAL
+    out.append((f"adversarial at {size}^2", (size, size),
+                *adversarial_polygons((size, size), 32, seed=13, big=60.0, n_each=n_each)))
     return out
+
+
+def phase_i(dev, rt, splat):
+    """Raster kernel vs its plain version (exact, both packings) and the
+    atan2 splat."""
+    out = []
+    for name, shape, *arrays in raster_fields():
+        d, p, o, lab = (torch.from_numpy(np.asarray(a)).to(dev) for a in arrays)
+        n = len(d)
+        ref = rt.rasterize_polygons_tiles_plain(d, p, shape, o, lab)
+        n_diff, err = 0, 0
+        for vb in (n, None):                    # the 32-bit packing, then the 64-bit one
+            for dtype in (torch.int32, torch.uint16):
+                got = rt.rasterize_polygons_tiles_cuda(d, p, shape, o, lab, out_dtype=dtype,
+                                                       value_bound=vb)
+                torch.cuda.synchronize()
+                check(got.dtype == dtype, f"raster kernel gave {got.dtype} for {dtype}")
+                got = got.to(torch.int32)
+                n_diff += int((got != ref).sum().item())
+                err = max(err, int((got.long() - ref.long()).abs().max().item()))
+        check(n_diff == 0, f"raster kernel differs from plain on {n_diff} pixels ({name})")
+        n_splat = int((got != splat(d, p, shape, o, lab)).sum().item())
+        fg = int((ref > 0).sum().item())
+        window = rt.tile_window(d.max().item(), shape)
+        del ref, got
+        inputs = rt.kernel_inputs(d, p, o, lab)
+        t_kern = cuda_ms(lambda: rt.draw(inputs, shape, True), iters=10)
+        t_k64 = cuda_ms(lambda: rt.draw(inputs, shape, False), iters=10)
+        t_call = cuda_ms(lambda: rt.rasterize_polygons_tiles_cuda(
+            d, p, shape, o, lab, value_bound=n), iters=10)
+        t_call64 = cuda_ms(lambda: rt.rasterize_polygons_tiles_cuda(d, p, shape, o, lab),
+                           iters=10)
+        t_plain = cuda_ms(lambda: rt.rasterize_polygons_tiles_plain(d, p, shape, o, lab), iters=1)
+        b_ms, b_by = raster_bound(rt, d, p, shape, o, lab)
+        out.append(dict(name=name, n=n, n_diff=n_diff, err=err, ms=t_call, kernel_ms=t_kern,
+                        plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by))
+        print(f"(i) raster, {name} (R = {d.shape[1]}, window {window}, {fg} foreground "
+              f"pixels): kernel == plain with both packings and both output types "
+              f"({n_diff} differing pixels; {n_splat} differ from the atan2 splat); "
+              f"32-bit packing: kernel + memset {t_kern:.4f} ms, call {t_call:.4f} ms; 64-bit: "
+              f"kernel + memset {t_k64:.4f} ms, call {t_call64:.4f} ms; plain {t_plain:.2f} "
+              f"ms; bound of the function on this field {b_ms:.4f} ms ({b_by}), kernel + "
+              f"memset at {100 * b_ms / t_kern:.1f}% of it, the call at "
+              f"{100 * b_ms / t_call:.1f}%", flush=True)
+        del inputs
+    # more polygons than the 32-bit packing holds: the int64 image, equal too
+    size, n = RASTER_MANY
+    d, p, o, lab = (torch.from_numpy(np.asarray(a)).to(dev)
+                    for a in polygon_field(n, size, seed=17))
+    got = rt.rasterize_polygons_tiles_cuda(d, p, (size, size), o, lab, value_bound=n)
+    ref = rt.rasterize_polygons_tiles_plain(d, p, (size, size), o, lab)
+    n_diff = int((got != ref).sum().item())
+    check(n > rt.PACK32_MAX and n_diff == 0,
+          f"raster kernel differs from plain on {n_diff} pixels ({n} polygons, 64-bit)")
+    print(f"(i) raster, {n} polygons at {size}^2 (value_bound {n} > {rt.PACK32_MAX}: the "
+          f"64-bit packing): kernel == plain ({n_diff} differing pixels, {int(got.max())} "
+          f"largest label)", flush=True)
+    return out
+
+
+def raster_split(model, det, shape, rt):
+    """The raster stage of one 2D call, split (medians of 5): setup (the
+    render order, the labels and the kernel's inputs; CUDA events), the
+    kernel + memset, the unpack to uint16 or int32, the device-to-host copy
+    and the host's astype(np.int32) (host clock). The survivors are the
+    call's ``det``."""
+    from stardist_torch.geometry.geom2d import render_order
+    dev = model.device
+    d = torch.from_numpy(det["dist"]).to(dev)
+    p = torch.from_numpy(det["points"]).to(dev)
+    prob = torch.from_numpy(det["prob"]).to(dev)
+    n = len(prob)
+    dtype = torch.uint16 if n < 2 ** 16 - 1 else torch.int32
+
+    def setup():
+        order = render_order(prob)
+        return rt.kernel_inputs(d, p, order, torch.arange(n, device=dev))
+
+    inputs = setup()
+    img = rt.draw(inputs, shape, n <= rt.PACK32_MAX)
+    lab = rt.narrow(img, shape, dtype)        # in place on an int32 image: alike when repeated
+    ms = dict(setup=cuda_ms(setup, iters=5),
+              kernel_memset=cuda_ms(lambda: rt.draw(inputs, shape, n <= rt.PACK32_MAX), iters=5),
+              unpack=cuda_ms(lambda: rt.narrow(img, shape, dtype), iters=5))
+    host = {"copy": [], "astype": []}
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cpu = lab.cpu()
+        t1 = time.perf_counter()
+        cpu.numpy().astype(np.int32)
+        t2 = time.perf_counter()
+        host["copy"].append((t1 - t0) * 1e3)
+        host["astype"].append((t2 - t1) * 1e3)
+    ms.update({k: float(np.median(v)) for k, v in host.items()})
+    return (f"{n} survivors, {dtype} labels: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+            + f" ms (sum {sum(ms.values()):.3f} ms)")
 
 
 def phase_j(dev, kernels, StarDist2D):
@@ -839,7 +961,7 @@ def seam_report(model, img, lab1, lab2, det1, det2):
             f"{np.abs(d1 - d2).max():.3g}")
 
 
-def phase_k(dev, kernels, matching, StarDist2D):
+def phase_k(dev, kernels, matching, StarDist2D, rt):
     """Tiled predict_instances (n_tiles=(2, 2)) against one tile."""
     model = StarDist2D(None, "2D_demo", "models/examples", device=dev)
     img, lbl = synthetic_nuclei((TILED_SIZE, TILED_SIZE), seed=321)
@@ -878,6 +1000,9 @@ def phase_k(dev, kernels, matching, StarDist2D):
           f"(min-max): {walls}", flush=True)
     print(f"(k) nms_polygons at {TILED_SIZE}^2 untiled, split: "
           f"{nms_profile(model, img, kernels['pair'])}", flush=True)
+    print(f"(k) raster stage at {TILED_SIZE}^2 untiled (stage "
+          f"{det1['timings_s']['raster'] * 1e3:.3f} ms in the call above), split: "
+          f"{raster_split(model, det1, img.shape, rt)}", flush=True)
     return launches
 
 
@@ -926,7 +1051,7 @@ def main(argv=None):
         pair = phase_c(dev, po) if "c" in phases else None
         if "d" in phases:
             phase_d(net, dev)
-        launches = phase_e(dev, kernels, matching, StarDist2D) if "e" in phases else None
+        launches = phase_e(dev, kernels, matching, StarDist2D, rt) if "e" in phases else None
         del net
         torch.cuda.empty_cache()
 
@@ -947,7 +1072,7 @@ def main(argv=None):
     if "j" in phases:
         phase_j(dev, kernels, StarDist2D)
     if "k" in phases:
-        phase_k(dev, kernels, matching, StarDist2D)
+        phase_k(dev, kernels, matching, StarDist2D, rt)
     if phases != set(ALL_PHASES):
         return 0
     launches["conv3d"] = launches3d
@@ -969,14 +1094,14 @@ def main(argv=None):
          "library_ms": None, "ms_s8": pair[8]["ms"], "call_ms": pair[16]["call_ms"]},
         conv_row("conv3x3x3_bf16_dhwc", "stardist_torch/csrc/conv3x3x3.cu",
                  "stardist_tpu/ops/conv_pallas.py:574", launches["conv3d"], conv3d),
-        {"name": "raster_tiles_i64", "route": "cuda",
+        {"name": "raster_labels_u32", "route": "cuda",
          "source": "stardist_torch/csrc/raster_tiles.cu",
          "replaces": "stardist_tpu/ops/raster_pallas.py:80",
          "launches": launches["raster"], "max_abs_err": max(r["err"] for r in raster),
          "mismatched_pixels": sum(r["n_diff"] for r in raster),
          "ms": raster[0]["ms"], "plain_ms": raster[0]["plain_ms"],
          "bound_ms": raster[0]["bound_ms"], "bound_by": raster[0]["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "kernel_ms": raster[0]["kernel_ms"]},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

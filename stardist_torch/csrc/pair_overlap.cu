@@ -12,9 +12,9 @@
 // the function needs one wedge of the R. The design:
 // - a wedge lookup, not a walk over all R rays: a polynomial arctangent of
 //   the sample's offset u = q - p (within 0.004 rad, where a wedge is at
-//   least 2 pi / 128 = 0.049 rad) gives the wedge k0 to within one, and the
-//   walk's own predicate is evaluated on the window k0 - 1, k0, k0 + 1
-//   only (below);
+//   least 2 pi / 128 = 0.049 rad; wedge.cuh, shared with the raster
+//   kernel) gives the wedge k0 to within one, and the walk's own predicate
+//   is evaluated on the window k0 - 1, k0, k0 + 1 only (below);
 // - a persistent grid: each block stages the trig table once, as float4
 //   (sin phi_k, cos phi_k, sin phi_k+1, cos phi_k+1), and its warps walk
 //   the pairs grid-stride; a pair takes 16 lanes at S = 8 (two pairs per
@@ -56,18 +56,18 @@
 //   exact in f32 whatever the summation order.
 #include <cuda_runtime.h>
 
+#include "wedge.cuh"
+
 namespace {
 
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int RMAX = 128;
 constexpr int MAX_DEVICES = 64;
-constexpr float U_LO = 0x1p-60f;  // |u| range of the lookup (see the header)
-constexpr float U_HI = 0x1p64f;
 
 // tab[k] = (sin phi_k, cos phi_k, sin phi_k+1, cos phi_k+1)
 __device__ __forceinline__ float cross_ray(float ur, float uc, float4 t) {
-  return __fsub_rn(__fmul_rn(ur, t.y), __fmul_rn(uc, t.x));
+  return ::cross_ray(ur, uc, t.x, t.y);
 }
 
 // wedge k's vertex terms added to the running sums v = (v0r, v0c, v1r, v1c)
@@ -106,18 +106,6 @@ __device__ __noinline__ bool inside_walk(const float* __restrict__ d, float ur, 
   return side(ur, uc, v);
 }
 
-// theta = atan2(ur, uc) in [-pi, pi] to within 0.004 rad, for u != 0: the
-// arctangent of z = min / max of |ur|, |uc| as pi/4 z + 0.273 z (1 - z),
-// moved to theta's octant
-__device__ __forceinline__ float theta_estimate(float ur, float uc) {
-  const float ar = fabsf(ur), ac = fabsf(uc);
-  const float z = __fdividef(fminf(ar, ac), fmaxf(ar, ac));
-  float a = z * (0.78539816f + 0.273f * (1.0f - z));
-  if (ar > ac) a = 1.57079633f - a;
-  if (uc < 0.0f) a = 3.14159265f - a;
-  return ur < 0.0f ? -a : a;
-}
-
 // Inside test of sample (qr, qc) against the star polygon with dists d[R]
 // about (pr, pc); rscale = R / (2 pi).
 __device__ __forceinline__ bool inside(const float* __restrict__ d, float pr, float pc,
@@ -127,11 +115,7 @@ __device__ __forceinline__ bool inside(const float* __restrict__ d, float pr, fl
   const float uc = __fsub_rn(qc, pc);
   const float m = fmaxf(fabsf(ur), fabsf(uc));
   if (!(m >= U_LO && m < U_HI)) return inside_walk(d, ur, uc, tab, R);
-  // the wedge of theta, to within one
-  float t = theta_estimate(ur, uc) * rscale;
-  if (t < 0.0f) t += (float)R;
-  int k0 = (int)t;
-  if (k0 >= R) k0 -= R;
+  const int k0 = wedge_estimate(ur, uc, R, rscale);  // theta's wedge, to within one
   const int ka = k0 == 0 ? R - 1 : k0 - 1;
   const int kc = k0 == R - 1 ? 0 : k0 + 1;
   const int kd = kc == R - 1 ? 0 : kc + 1;

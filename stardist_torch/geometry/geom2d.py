@@ -70,6 +70,8 @@ def polygons_to_label(dist, points, shape, prob=None, thr=-np.inf, scale_dist=(1
     if out_dtype == torch.uint16 and len(dist) >= 2 ** 16 - 1:
         raise ValueError(f"{len(dist)} polygons do not fit uint16 labels")
     labels = torch.arange(len(dist), device=dev)
+    # ranks 1..N and labels + 1 <= N: the raster packs into 32 bits when N fits 16
     img = rasterize_polygons(dist, points, tuple(shape), render_order(prob), labels=labels,
-                             out_dtype=torch.int32 if as_numpy else out_dtype)
+                             out_dtype=torch.int32 if as_numpy else out_dtype,
+                             value_bound=len(dist))
     return img.cpu().numpy() if as_numpy else img

@@ -11,8 +11,9 @@ passes the edge test ``cross_p * cross_c >= 0``. The int64 packing has no
 16-bit limit, so unlike the reference nothing is declined.
 
 :func:`rasterize_polygons_tiles_cuda` launches ``csrc/raster_tiles.cu``
-(one block per polygon, 64-bit atomicMax) on CUDA tensors; it is the 2D
-raster of :func:`.rasterize.rasterize_polygons` on the card.
+(a wedge lookup, a box of pixels per polygon, a persistent grid; a 32-bit
+packing when the caller bounds the values below 2^16) on CUDA tensors; it
+is the 2D raster of :func:`.rasterize.rasterize_polygons` on the card.
 :func:`rasterize_polygons_tiles_plain` is its plain version on any device,
 the splat loop of :mod:`.rasterize` with this inside test, which agrees
 with the kernel bit for bit.
@@ -28,9 +29,10 @@ import torch
 from .cuda_build import CudaKernel, stream_ptr
 
 KERNEL = CudaKernel(
-    "raster_tiles.cu", "raster_tiles_u64",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "raster_tiles.cu", "raster_labels",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     extra_flags=("-fmad=false",))
+PACK32_MAX = 0xFFFF  # the largest order value and label + 1 of the 32-bit packing
 
 _PLAIN_ELEMS = 1 << 21  # polygons x window^2 per step of the plain version
 
@@ -148,24 +150,61 @@ def rasterize_polygons_tiles_plain(dist, points, shape, order_values, labels=Non
     return unpack_labels(img, (H, W), out_dtype)
 
 
+def kernel_inputs(dist, points, order_values, labels):
+    """The kernel's inputs on the card, with no host sync: dist (N, R) and
+    centres (N, 2) f32, order values and labels (N,) int64 (labels may be
+    None), and the largest dist as a one-element tensor."""
+    dist = dist.to(torch.float32).contiguous()
+    return (dist, points.to(torch.float32).contiguous(),
+            order_values.to(torch.int64).contiguous(),
+            None if labels is None else labels.to(torch.int64).contiguous(),
+            dist.amax().reshape(1) if dist.numel() else dist.new_zeros(1))
+
+
+def draw(inputs, shape, pack32):
+    """Zero a packed label image ((H * W,) int32 with ``pack32``, else
+    int64) and launch the kernel on ``inputs`` (:func:`kernel_inputs`)."""
+    dist = inputs[0]
+    H, W = shape
+    img = torch.zeros(H * W, dtype=torch.int32 if pack32 else torch.int64, device=dist.device)
+    N, R = dist.shape
+    if N > 0:
+        tabs = _tables(R, dist.device)
+        ptrs = [ctypes.c_void_p(0 if t is None else t.data_ptr()) for t in (*inputs, *tabs, img)]
+        KERNEL.launch(*ptrs, N, R, H, W, 32 if pack32 else 64, stream_ptr(dist.device))
+    return img
+
+
+def narrow(img, shape, out_dtype):
+    """The packed image of :func:`draw` -> the winners' labels: the int64
+    image through :func:`unpack_labels`; the int32 one (low 16 bits) in
+    place to int32, or by one copy to uint16."""
+    if img.dtype == torch.int64:
+        return unpack_labels(img, shape, out_dtype)
+    if out_dtype == torch.uint16:
+        return img.view(torch.uint16)[0::2].reshape(shape)   # little-endian low halves
+    if out_dtype != torch.int32:
+        raise ValueError(f"out_dtype must be torch.int32 or torch.uint16, got {out_dtype}")
+    return img.bitwise_and_(PACK32_MAX).view(shape)
+
+
 def rasterize_polygons_tiles_cuda(dist, points, shape, order_values, labels=None,
-                                  out_dtype=torch.int32):
+                                  out_dtype=torch.int32, *, value_bound=None):
     """:func:`rasterize_polygons_tiles_plain` on CUDA tensors: launches
-    ``csrc/raster_tiles.cu``, or raises."""
+    ``csrc/raster_tiles.cu``, or raises. It makes no host sync.
+
+    ``value_bound``, where the caller knows one, is at least every order
+    value and every ``labels[i] + 1`` (every order value without labels);
+    when it is at most ``PACK32_MAX`` the kernel packs into 32 bits and no
+    int64 image is made. The bound is the caller's promise: it is not
+    checked."""
     N, R = dist.shape
     for t, sh in ((dist, (N, R)), (points, (N, 2)), (order_values, (N,)),
                   (labels, (N,))):
         if t is not None and (not t.is_cuda or tuple(t.shape) != sh):
             raise ValueError(f"rasterize_polygons_tiles_cuda: bad input {tuple(t.shape)} "
                              f"on {t.device}")
-    H, W = (int(s) for s in shape)
-    img = torch.zeros(H * W, dtype=torch.int64, device=dist.device)
-    if N == 0:
-        return unpack_labels(img, (H, W), out_dtype)
-    feats, points, origin, packed, window = _setup(dist, points, (H, W), order_values,
-                                                   labels)
-    trig = _tables(R, dist.device)[1]
-    KERNEL.launch(*(ctypes.c_void_p(t.data_ptr()) for t in (feats, points, origin, packed,
-                                                            trig, img)),
-                  N, R, H, W, window, stream_ptr(dist.device))
-    return unpack_labels(img, (H, W), out_dtype)
+    shape = tuple(int(s) for s in shape)
+    pack32 = value_bound is not None and value_bound <= PACK32_MAX
+    img = draw(kernel_inputs(dist, points, order_values, labels), shape, pack32)
+    return narrow(img, shape, out_dtype)

@@ -38,7 +38,7 @@ def raster_window(dmax, shape):
 
 
 def rasterize_polygons(dist, points, shape, order_values, labels=None,
-                       out_dtype=torch.int32):
+                       out_dtype=torch.int32, *, value_bound=None):
     """Per pixel, the polygon with the largest positive order value wins.
 
     dist (N, R), points (N, 2), order_values (N,) int (0 = never drawn);
@@ -46,11 +46,13 @@ def rasterize_polygons(dist, points, shape, order_values, labels=None,
     (torch.int32, or torch.uint16 when every pixel value fits, as the
     reference's device path ships it) on that device: the winner's
     ``labels[i] + 1`` (or its order value when ``labels`` is None), 0 for
-    background. CUDA tensors go through the tile kernel, CPU tensors
-    through the splat."""
+    background. CUDA tensors go through the tile kernel (``value_bound``,
+    the caller's bound on the order values and labels + 1, lets it pack
+    into 32 bits: :func:`.raster_tiles.rasterize_polygons_tiles_cuda`), CPU
+    tensors through the splat."""
     if dist.is_cuda:
         return rasterize_polygons_tiles_cuda(dist, points, shape, order_values, labels,
-                                             out_dtype=out_dtype)
+                                             out_dtype=out_dtype, value_bound=value_bound)
     if dist.device.type != "cpu":
         raise RuntimeError(f"no raster for device {dist.device}")
     return rasterize_polygons_splat(dist, points, shape, order_values, labels, out_dtype)

@@ -175,18 +175,25 @@ def test_header_layout_matches_smem_bytes(nd):
 def test_library_names_follow_the_headers_they_include(tmp_path):
     """A kernel library is named by its source and the local headers it
     includes: editing conv_sm90.cuh renames (so rebuilds) the conv
-    library and leaves the pair kernel's, which does not include it."""
-    for name in ("conv3x3.cu", "conv_sm90.cuh", "pair_overlap.cu"):
+    library and leaves the pair kernel's, which does not include it;
+    editing wedge.cuh, which the pair kernel includes, renames the pair
+    kernel's library and leaves the conv library's."""
+    for name in ("conv3x3.cu", "conv_sm90.cuh", "pair_overlap.cu", "wedge.cuh"):
         shutil.copy(HEADER.parent / name, tmp_path / name)
     conv_k = CudaKernel(str(tmp_path / "conv3x3.cu"), "conv3x3_bf16_hwc", [])
     pair_k = CudaKernel(str(tmp_path / "pair_overlap.cu"), "pair_frac_f32", [])
     assert local_sources(conv_k.source) == [conv_k.source, tmp_path / "conv_sm90.cuh"]
-    assert local_sources(pair_k.source) == [pair_k.source]
+    assert local_sources(pair_k.source) == [pair_k.source, tmp_path / "wedge.cuh"]
     before = conv_k.library_path(), pair_k.library_path()
     with open(tmp_path / "conv_sm90.cuh", "a") as f:
         f.write("// edited\n")
     assert conv_k.library_path() != before[0]
     assert pair_k.library_path() == before[1]
+    before = conv_k.library_path(), pair_k.library_path()
+    with open(tmp_path / "wedge.cuh", "a") as f:
+        f.write("// edited\n")
+    assert conv_k.library_path() == before[0]
+    assert pair_k.library_path() != before[1]
 
 
 def _layer_shapes(net, shape):

@@ -302,14 +302,66 @@ def test_raster_kernel_matches_plain(cuda_device, field):
 
 def test_raster_kernel_empty_field_and_uint16(cuda_device):
     shape = (70, 90)
-    img = rasterize_polygons(torch.zeros(0, 32, device=cuda_device),
-                             torch.zeros(0, 2, device=cuda_device), shape,
-                             torch.zeros(0, dtype=torch.int64, device=cuda_device))
-    assert img.shape == shape and img.is_cuda and not img.any()
+    n0 = trt.KERNEL.launches
+    for value_bound in (None, 0):
+        for dtype in (torch.int32, torch.uint16):
+            img = rasterize_polygons(torch.zeros(0, 32, device=cuda_device),
+                                     torch.zeros(0, 2, device=cuda_device), shape,
+                                     torch.zeros(0, dtype=torch.int64, device=cuda_device),
+                                     out_dtype=dtype, value_bound=value_bound)
+            assert img.shape == shape and img.is_cuda and img.dtype == dtype
+            assert not img.to(torch.int32).any()     # torch has no any() of uint16
+    assert trt.KERNEL.launches == n0
     dist, points, order, labels = (t.to(cuda_device) for t in _polygons(60, 32, shape, seed=3))
     u = rasterize_polygons(dist, points, shape, order, labels, out_dtype=torch.uint16)
     i = rasterize_polygons(dist, points, shape, order, labels)
     assert u.dtype == torch.uint16 and torch.equal(u.to(torch.int32), i)
+
+
+@pytest.mark.parametrize("R", [3, 32, 100, 128])
+@pytest.mark.parametrize("field", ["random", "adversarial", "capped"])
+def test_raster_kernel_matches_plain_with_both_packings(cuda_device, field, R):
+    """The kernel's wedge lookup and boxes, with the 32-bit packing (a value
+    bound below 2^16) and the 64-bit one, to int32 and to uint16, against
+    the plain twin: on random polygons, on polygons where the lookup and
+    the boxes are most likely to go wrong (chip_smoke.adversarial_polygons;
+    R = 100: the last wedge overlaps the first), and on such a field whose
+    dist of 1e4 caps the window at the image."""
+    from chip_smoke import adversarial_polygons, polygon_field
+    if field == "random":
+        shape = (411, 411)
+        arrays = polygon_field(3000, 411, seed=R, n_rays=R)
+    elif field == "adversarial":
+        shape = (300, 411)
+        arrays = adversarial_polygons(shape, R, seed=R, big=40.0)
+    else:
+        shape = (60, 90)
+        arrays = adversarial_polygons(shape, R, seed=R, big=1e4, n_each=2)
+    d, p, o, lab = (torch.from_numpy(np.asarray(a)).to(cuda_device) for a in arrays)
+    ref = trt.rasterize_polygons_tiles_plain(d, p, shape, o, lab)
+    assert (ref > 0).sum().item() > 500
+    for value_bound in (len(d), None):
+        for dtype in (torch.int32, torch.uint16):
+            n0 = trt.KERNEL.launches
+            got = trt.rasterize_polygons_tiles_cuda(d, p, shape, o, lab, out_dtype=dtype,
+                                                    value_bound=value_bound)
+            torch.cuda.synchronize()
+            assert trt.KERNEL.launches == n0 + 1
+            assert got.dtype == dtype and tuple(got.shape) == shape
+            assert torch.equal(got.to(torch.int32), ref)
+
+
+def test_raster_kernel_makes_no_host_sync(cuda_device):
+    dist, points, order, labels = (t.to(cuda_device) for t in _polygons(400, 32, (300, 411), 4))
+    trt.rasterize_polygons_tiles_cuda(dist, points, (300, 411), order, labels)   # builds
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for value_bound in (None, 400):
+            trt.rasterize_polygons_tiles_cuda(dist, points, (300, 411), order, labels,
+                                              out_dtype=torch.uint16, value_bound=value_bound)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 def test_predict_instances_device_equals_predict_instances_on_card(cuda_device):
