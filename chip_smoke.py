@@ -1,6 +1,6 @@
 """Smoke run of stardist_torch on one CUDA card.
 
-    python3 chip_smoke.py [--phases bcdefghijk]
+    python3 chip_smoke.py [--phases bcdefghijkl]
 
 Phases (each prints one line; any failed check exits non-zero):
   (a) the card's name and power limit; build the four CUDA kernels from
@@ -62,7 +62,23 @@ Phases (each prints one line; any failed check exits non-zero):
       two differ: the differing pixels and survivors, in all and within
       the tiles' overlap band around a seam, and the dense prediction's
       largest differences, tiled against untiled; and the untiled call's
-      nms_polygons split by torch.profiler and its raster stage split.
+      nms_polygons split by torch.profiler and its raster stage split;
+  (l) 2D training at full width (Config2D(grid=(2, 2)): 256^2 patches,
+      batch 4) on eight seeded 1024^2 synthetic nuclei fields: on one fixed
+      raw batch with the same weights and TF32 off, the card's fused
+      targets against the CPU port's (dist exactly, prob within
+      TARGET_TOL), its loss and metrics (rtol METRIC_RTOL) and every
+      parameter's gradient (within GRAD_TOL of its largest magnitude); then
+      StarDist2D.train for 2 epochs x 25 steps from the seeded init, with
+      TF32 off and on: finite losses, the last 10 steps' mean below the
+      first 10's, steps/s, the step split (the wait for the producer by the
+      host clock; upload, targets, forward + backward, optimizer by CUDA
+      events), peak memory, the host syncs of one step and the device busy
+      share of 10 steps (torch.profiler); then the trained net's kernel
+      path against its plain path (FWD_TOL: the packed weights followed
+      Adam's updates), and weights_best.h5 loaded into a fresh model that
+      serves predict_instances through the conv, pair and raster kernels
+      and agrees with the same file loaded on the CPU.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. With --phases, only (a) and the named phases
 run (e.g. --phases k to time the tiled call alone), and neither line is
@@ -97,7 +113,14 @@ RASTER_FIELDS = ((4096, 7000), (2048, 60_000))  # (i): (image side, polygons)
 RASTER_ADVERSARIAL = (2048, 200)  # (i): image side, polygons of each adversarial kind
 RASTER_MANY = (2048, 66_000)      # (i): more polygons than the 32-bit packing holds
 TILED_SIZE = 4096                # (k)
-ALL_PHASES = "bcdefghijk"        # (a) runs always
+TRAIN_FIELDS = (8, 1024)         # (l): synthetic nuclei fields (count, side)
+TRAIN_CONFIG = dict(grid=(2, 2))  # (l): Config2D's full width and training defaults
+TRAIN_EPOCHS, TRAIN_STEPS = 2, 25  # (l)
+TRAIN_PROFILED = 10              # (l): steps in the torch.profiler window
+TARGET_TOL = 1e-6    # (l) prob targets, card vs CPU (dist: exact)
+METRIC_RTOL = 1e-4   # (l) loss and metrics, card vs CPU, TF32 off
+GRAD_TOL = 1e-3      # (l) gradients, relative to the parameter's largest |grad| on the CPU
+ALL_PHASES = "bcdefghijkl"       # (a) runs always
 # one H100 SXM (NVIDIA's data sheet, dense, at the 700 W limit): bf16 tensor
 # cores, f32 outside them, HBM3
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -494,8 +517,10 @@ def read_launches(kernels, model, n_calls=1):
 
 
 def host_syncs(fn):
-    """Host syncs that one call of fn() makes, as torch's sync debug mode
-    flags them."""
+    """The host syncs of one call of fn(), as torch's sync debug mode flags
+    them: (count, the distinct places in the Python source that made them).
+    Only the flags count, not the mode's own warning that it is a
+    prototype, which a process shows once."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -503,7 +528,9 @@ def host_syncs(fn):
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message).lower() for w in caught)
+    sites = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+             if "called a synchronizing" in str(w.message)]
+    return len(sites), sorted(set(sites))
 
 
 def nms_profile(model, img, pair_kernel, n_top=8):
@@ -522,7 +549,7 @@ def nms_profile(model, img, pair_kernel, n_top=8):
     d, p = dist[o].float().contiguous(), points[o].float().contiguous()
     thresh, stats = model.thresholds.nms, {}
     nms_polygons(d, p, thresh=thresh)                 # warm-up
-    n_sync = host_syncs(lambda: nms_polygons(d, p, thresh=thresh))
+    n_sync = host_syncs(lambda: nms_polygons(d, p, thresh=thresh))[0]
     torch.cuda.synchronize()
     n0 = pair_kernel.launches
     try:
@@ -893,7 +920,7 @@ def phase_j(dev, kernels, StarDist2D):
     x_dev = torch.from_numpy(img).to(dev)
     lab_t, _ = model.predict_instances_device(x_dev)
     check(np.array_equal(lab_t, labels), "pre-staged tensor input gives other labels")
-    n_sync = host_syncs(lambda: model.predict_instances_device(x_dev, fetch=False))
+    n_sync = host_syncs(lambda: model.predict_instances_device(x_dev, fetch=False))[0]
     walls = walls_ms({"predict_instances": lambda: model.predict_instances(img),
                       "fetch=True": lambda: model.predict_instances_device(img),
                       "fetch=False": lambda: model.predict_instances_device(img, fetch=False)},
@@ -1006,6 +1033,268 @@ def phase_k(dev, kernels, matching, StarDist2D, rt):
     return launches
 
 
+def set_tf32(on):
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = on
+
+
+class StageMarks:
+    """A CUDA event and a host time at each stage of the training loop's
+    steps (the model's ``step_marks`` hook)."""
+
+    def __init__(self):
+        self.marks = []
+
+    def __call__(self, stage):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks.append((stage, time.perf_counter(), ev))
+
+    def split(self):
+        """Median per stage over the steps: "wait" (for the producer) by the
+        host clock, the others by CUDA events (each from the previous
+        stage's mark to its own); and the median host time from one step's
+        start to the next's."""
+        torch.cuda.synchronize()
+        steps = []
+        for m in self.marks:
+            if m[0] == "start":
+                steps.append([])
+            steps[-1].append(m)
+        stages = {}
+        for st in steps:
+            for (_, h0, e0), (name, h1, e1) in zip(st, st[1:]):
+                stages.setdefault(name, []).append(
+                    (h1 - h0) * 1e3 if name == "wait" else e0.elapsed_time(e1))
+        walls = [(b[0][1] - a[0][1]) * 1e3 for a, b in zip(steps, steps[1:])]
+        return {k: float(np.median(v)) for k, v in stages.items()}, float(np.median(walls))
+
+
+def device_busy(fn):
+    """fn() under torch.profiler: its wall, the device time of its CUDA
+    kernels and copies, the six largest ops; or a text saying why not."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        ops, host = [], []
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                us = getattr(e, "self_device_time_total", None)
+                us = getattr(e, "self_cuda_time_total", 0) if us is None else us
+                ops.append((us / 1e3, e.count, e.key))
+            else:
+                host.append((e.self_cpu_time_total / 1e3, e.count, e.key))
+    except Exception as exc:                          # a measurement, not a check
+        return f"torch.profiler failed: {exc!r}"
+    if not ops:
+        return "torch.profiler saw no device time"
+    ops.sort(reverse=True)
+    host.sort(reverse=True)
+    busy = sum(ms for ms, _, _ in ops)
+    top = "; ".join(f"{name[:60]} {ms:.2f} ms x{n}" for ms, n, name in ops[:6])
+    top_host = "; ".join(f"{name[:50]} {ms:.2f} ms x{n}" for ms, n, name in host[:8])
+    return (f"wall {wall:.1f} ms, device {busy:.1f} ms ({100 * busy / wall:.0f}% busy); top "
+            f"device ops: {top}; top host ops (self CPU time): {top_host}")
+
+
+def train_vs_cpu(dev, StarDist2D, cfg, data):
+    """One fixed raw batch, the same seeded weights, TF32 off: the card's
+    targets, loss, metrics and gradients against the CPU port's."""
+    np.random.seed(11)
+    raw = data.raw_item(0)
+    out = []
+    for device in (dev, "cpu"):
+        m = StarDist2D(cfg, name="l_cmp", basedir=None, device=device)
+        m.prepare_for_training()
+        t = m._targets_fn(m._put_batch(raw))
+        loss, metrics = m._loss_and_metrics(t)
+        loss.backward()
+        out.append((t, {k: float(v) for k, v in metrics.items()},
+                    {k: p.grad.cpu() for k, p in m.net.named_parameters()}))
+    (tg, mg, gg), (tc, mc, gc) = out
+    R = cfg.n_rays
+    check(torch.equal(tg["dist"][..., :R].cpu(), tc["dist"][..., :R]),
+          "star-dist targets: card != CPU")
+    e_prob = max((tg[k][..., -1].cpu() - tc[k][..., -1]).abs().max().item() for k in ("prob", "dist"))
+    check(e_prob <= TARGET_TOL, f"prob targets: card vs CPU {e_prob}")
+    e_met = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-30) for k in mc)
+    check(e_met <= METRIC_RTOL, f"loss / metrics: card vs CPU rel {e_met}: {mg} {mc}")
+    e_grad = max(((gg[k] - gc[k]).abs().max() / gc[k].abs().max().clamp_min(1e-30)).item()
+                 for k in gc)
+    check(e_grad <= GRAD_TOL, f"gradients: card vs CPU rel {e_grad}")
+    n_lab = int((raw["labels"] > 0).sum())
+    return (f"targets equal (dist exact, prob max abs diff {e_prob:.1e}; {n_lab} labels, march "
+            f"bound {raw['steps']} steps), loss {mg['loss']:.6f} vs {mc['loss']:.6f}, metrics max "
+            f"rel diff {e_met:.1e}, gradients max rel diff {e_grad:.1e} over "
+            f"{len(gc)} parameters; {targets_split(dev, cfg, raw)}")
+
+
+def targets_split(dev, cfg, raw):
+    """CUDA-event times of the two parts of the fused targets on ``raw``:
+    the EDT prob and the star-distance march."""
+    from stardist_torch.ops.edt import edt_prob_batch
+    from stardist_torch.ops.stardist2d import star_dist2d
+    gy, gx = cfg.grid
+    y = torch.from_numpy(raw["y"]).to(dev).clamp_min(0)
+    labels = torch.from_numpy(raw["labels"]).to(dev)
+    ms_edt = cuda_ms(lambda: edt_prob_batch(y[:, ::gy, ::gx], labels))
+    ms_march = cuda_ms(lambda: star_dist2d(y, cfg.n_rays, cfg.grid, n_steps=raw["steps"]))
+    return (f"targets split on this batch: EDT {ms_edt:.3f} ms ({labels.shape[0]} x "
+            f"{labels.shape[1]} labels), march {ms_march:.3f} ms")
+
+
+def train_run(dev, kernels, StarDist2D, cfg, X, Y, workdir, tf32):
+    """StarDist2D.train on the card: checks and numbers of one run."""
+    set_tf32(tf32)
+    m = StarDist2D(cfg, name=f"l_tf32_{'on' if tf32 else 'off'}", basedir=workdir, device=dev)
+    x0 = torch.from_numpy(X[0][:512, :512, None]).to(dev)
+    m.net(x0)                      # the kernel path's packed weights, before training
+    marks = StageMarks()
+    m.step_marks = marks
+    reset_launches(kernels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    h = m.train(X, Y, validation_data=(X[:2], Y[:2]), seed=21, epochs=TRAIN_EPOCHS,
+                steps_per_epoch=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    m.step_marks = None
+    launches = {name: k.launches for name, k in kernels.items()}
+    losses = np.asarray(h.steps["loss"])
+    check(len(losses) == TRAIN_EPOCHS * TRAIN_STEPS and np.isfinite(losses).all(),
+          f"training losses not finite: {losses}")
+    first, last = losses[:10].mean(), losses[-10:].mean()
+    check(last < first, f"training loss did not fall: first 10 steps {first}, last 10 {last}")
+    split, step_ms = marks.split()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    # pinned, as the training loop's producer hands them over
+    batches = [{k: torch.from_numpy(v).pin_memory() if isinstance(v, np.ndarray) else v
+                for k, v in m.data_train.raw_item(i).items()} for i in range(TRAIN_PROFILED)]
+    m._train_step(m._put_batch(batches[0]), gen)
+    n_sync, sites = host_syncs(lambda: m._train_step(m._put_batch(batches[0]), gen))
+    busy = device_busy(lambda: [m._train_step(m._put_batch(b), gen) for b in batches])
+    host = host_split(m, batches, gen)
+    text = (f"TF32 {'on' if tf32 else 'off'}: {len(losses)} steps, call {wall:.1f} s "
+            f"({len(losses) / wall:.1f} steps/s with validation, checkpoints and start-up), "
+            f"step {step_ms:.2f} ms median ({1e3 / step_ms:.1f} steps/s); loss first 10 "
+            f"{first:.4f}, last 10 {last:.4f}, val_loss {h.history['val_loss']}; split (median "
+            f"ms): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) +
+            f"; peak memory {peak:.2f} GiB; host syncs in one step {n_sync} {sites}; "
+            f"{TRAIN_PROFILED} steps profiled: {busy}; {host}; kernel launches during train "
+            f"{launches}")
+    return m, text
+
+
+def host_split(m, batches, gen):
+    """Host clock: the producer's work for one batch (``raw_item`` and the
+    pinning), and the wall of the pre-made ``batches``' steps alone and
+    with a thread doing the producer's work beside them."""
+    import threading
+
+    def produce(i):
+        return {k: torch.from_numpy(v).pin_memory() if isinstance(v, np.ndarray) else v
+                for k, v in m.data_train.raw_item(i).items()}
+
+    t0 = time.perf_counter()
+    for i in range(len(batches)):
+        produce(i)
+    t_batch = (time.perf_counter() - t0) * 1e3 / len(batches)
+
+    def steps_ms():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            m._train_step(m._put_batch(b), gen)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / len(batches)
+
+    alone = steps_ms()
+    stop = threading.Event()
+
+    def busy_producer():
+        i = 0
+        while not stop.is_set():
+            produce(i)
+            i += 1
+
+    thread = threading.Thread(target=busy_producer)
+    thread.start()
+    try:
+        beside = steps_ms()
+    finally:
+        stop.set()
+        thread.join()
+    return (f"host: the producer's work {t_batch:.1f} ms per batch; a step {alone:.1f} ms "
+            f"alone, {beside:.1f} ms beside a thread doing the producer's work")
+
+
+def phase_l(dev, kernels, StarDist2D, Config2D):
+    """2D training on the card, at full width."""
+    from stardist_torch.models.model2d import StarDistData2D
+    import shutil
+    import tempfile
+    n, side = TRAIN_FIELDS
+    fields = [synthetic_nuclei((side, side), seed=700 + i) for i in range(n)]
+    X, Y = [f[0] for f in fields], [f[1] for f in fields]
+    cfg = Config2D(**TRAIN_CONFIG)
+    os.makedirs("build", exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_train_", dir="build")
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    try:
+        set_tf32(False)
+        data = StarDistData2D(X, Y, batch_size=cfg.train_batch_size, n_rays=cfg.n_rays, length=1,
+                              patch_size=cfg.train_patch_size, grid=cfg.grid,
+                              foreground_prob=cfg.train_foreground_only)
+        print(f"(l) training step at {cfg.train_patch_size} x {cfg.train_batch_size}, card vs CPU "
+              f"(TF32 off): {train_vs_cpu(dev, StarDist2D, cfg, data)}", flush=True)
+        runs = {}
+        for tf32 in (False, True):
+            runs[tf32], text = train_run(dev, kernels, StarDist2D, cfg, X, Y, workdir, tf32)
+            print(f"(l) StarDist2D.train {TRAIN_EPOCHS} x {TRAIN_STEPS} steps, {n} fields of "
+                  f"{side}^2: {text}", flush=True)
+        set_tf32(False)
+        m = runs[False]
+        x = torch.from_numpy(X[1][:, :, None]).to(dev)
+        prob, dist = m.net(x)
+        prob_p, dist_p = m.net(x, plain=True)
+        e_prob = (prob - prob_p).abs().max().item()
+        e_dist = ((dist - dist_p).abs().max() / dist_p.abs().max().clamp_min(1.0)).item()
+        check(e_prob < FWD_TOL and e_dist < FWD_TOL,
+              f"trained net: kernel path vs plain: prob {e_prob}, dist {e_dist}")
+        served = StarDist2D(None, name=m.name, basedir=workdir, device=dev)
+        on_cpu = StarDist2D(None, name=m.name, basedir=workdir, device="cpu")
+        img = X[1]
+        prob_map, _ = served.predict(img)
+        thresh = float(min(0.5, np.quantile(prob_map, 0.95)))
+        reset_launches(kernels)
+        labels, det = served.predict_instances(img, prob_thresh=thresh)
+        torch.cuda.synchronize()
+        launches = read_launches(kernels, served)
+        check(labels.shape == img.shape and labels.max() > 0, "served model drew no label")
+        p_c, d_c = on_cpu.net(torch.from_numpy(img[:, :, None]))
+        p_g, d_g = served.net(x)
+        e_c = max((p_g.cpu() - p_c).abs().max().item(),
+                  ((d_g.cpu() - d_c).abs().max() / d_c.abs().max().clamp_min(1.0)).item())
+        check(e_c < FWD_TOL, f"weights_best.h5 on the card vs on the CPU: {e_c}")
+        print(f"(l) the trained net (TF32 off run): kernel path vs plain prob {e_prob:.2e}, dist "
+              f"{e_dist:.2e}; weights_best.h5 reloaded: card (kernels, bf16) vs CPU (plain, "
+              f"f32) forward {e_c:.2e}; predict_instances {side}^2 at prob_thresh {thresh:.3f}: "
+              f"{len(det['prob'])} objects ({int(Y[1].max())} true), stages "
+              + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in det["timings_s"].items())
+              + f" ms, launches {launches}", flush=True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=ALL_PHASES,
@@ -1073,6 +1362,8 @@ def main(argv=None):
         phase_j(dev, kernels, StarDist2D)
     if "k" in phases:
         phase_k(dev, kernels, matching, StarDist2D, rt)
+    if "l" in phases:
+        phase_l(dev, kernels, StarDist2D, Config2D)
     if phases != set(ALL_PHASES):
         return 0
     launches["conv3d"] = launches3d

@@ -1,5 +1,5 @@
-"""2D geometry: polar -> cartesian and label rendering (counterpart of
-``stardist_tpu/geometry/geom2d.py``).
+"""2D geometry: star distances, polar -> cartesian and label rendering
+(counterpart of ``stardist_tpu/geometry/geom2d.py``).
 
 ``polygons_to_label`` keeps the reference's order semantics: polygons are
 rendered in ascending probability order and later ones overwrite earlier
@@ -11,12 +11,41 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..matching import _check_label_array
 from ..ops.rasterize import rasterize_polygons
-from ..utils import as_tensor_on
+from ..ops.stardist2d import march_steps, star_dist2d, star_dist2d_numpy
+from ..utils import _normalize_grid, as_tensor_on, regions
+
+# the reference's device modes ('cpp' / 'opencl' accepted for its API), all the torch march
+_MARCH_MODES = ("torch", "jax", "tpu", "cpp", "opencl")
 
 
 def ray_angles(n_rays=32):
     return np.linspace(0, 2 * np.pi, n_rays, endpoint=False)
+
+
+def star_dist(a, n_rays=32, grid=(1, 1), mode="torch", *, device="cuda"):
+    """Star-convex distances of a label image ``a`` (id 0 = background):
+    ((H - 1) // gy + 1, (W - 1) // gx + 1, n_rays) float32. ``mode``
+    "numpy" / "python" runs the numpy oracle; the others the torch ray march
+    (:func:`..ops.stardist2d.star_dist2d`), numpy in -> numpy out, drawn on
+    ``device`` (the card unless the caller passes ``device="cpu"``); a
+    tensor runs on its own device and comes back as a tensor."""
+    if not (np.isscalar(n_rays) and 0 < int(n_rays)):
+        raise ValueError("need 'n_rays' >= 1")
+    if n_rays < 3:
+        raise ValueError("need 'n_rays' >= 3")
+    n_rays = int(n_rays)
+    grid = _normalize_grid(grid, 2)
+    if mode in ("numpy", "python"):
+        return star_dist2d_numpy(np.asarray(a), n_rays, grid=grid)
+    if mode not in _MARCH_MODES:
+        raise ValueError(f"Unknown mode {mode}")
+    if isinstance(a, torch.Tensor):
+        return star_dist2d(a, n_rays, grid)
+    a = np.asarray(a).astype(np.int32)
+    return star_dist2d(as_tensor_on(a, device), n_rays, grid,
+                       n_steps=march_steps(a)).cpu().numpy()
 
 
 def _check_scale_dist(scale_dist):
@@ -75,3 +104,19 @@ def polygons_to_label(dist, points, shape, prob=None, thr=-np.inf, scale_dist=(1
                              out_dtype=torch.int32 if as_numpy else out_dtype,
                              value_bound=len(dist))
     return img.cpu().numpy() if as_numpy else img
+
+
+def relabel_image_stardist(lbl, n_rays, *, device="cuda", **kwargs):
+    """Relabel each region of ``lbl`` with its star-convex polygon
+    approximation (numpy int32); ``kwargs`` go to :func:`star_dist`, and
+    both it and the drawing run on ``device``."""
+    _check_label_array(lbl, "lbl")
+    if not lbl.ndim == 2:
+        raise ValueError("lbl image should be 2 dimensional")
+    dist = star_dist(lbl, n_rays, device=device, **kwargs)
+    points = np.array(tuple(np.array(r.centroid).astype(int) for r in regions(lbl)))
+    if len(points) == 0:
+        dist, points = np.zeros((0, n_rays), np.float32), np.zeros((0, 2), int)
+    else:
+        dist = dist[tuple(points.T)]
+    return polygons_to_label(dist, points, shape=lbl.shape, device=device)

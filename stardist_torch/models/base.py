@@ -1,5 +1,16 @@
-"""Model base: model folder loading and the prediction pipeline
+"""Model base: the model folder, training and the prediction pipeline
 (counterpart of ``stardist_tpu/models/base.py``).
+
+Training (:meth:`StarDistBase.prepare_for_training`, :meth:`StarDistBase.
+_fit`): Adam with optax's defaults, ReduceLROnPlateau on the validation
+loss, the three checkpoints the config names (weights files the JAX package
+reads too), ``logs/history.jsonl`` and TensorBoard where it imports, and
+``train_state.pt`` for a bitwise resume. A producer thread samples and
+augments the batches on the host, four ahead of the step; the step uploads
+them (pinned, non-blocking on CUDA), builds the targets there when the
+model has a targets function (``_device_targets_fn``), and runs the loss,
+the backward pass and the update on ``self.device``; the metrics stay there
+until the epoch ends.
 
 ``predict_instances`` = normalize -> pad -> U-Net forward -> candidate
 extraction (threshold, border mask, gather of the candidates' dist columns)
@@ -12,8 +23,11 @@ prediction (prob and dist maps as numpy).
 """
 from __future__ import annotations
 
+import datetime
 import json
 import math
+import queue
+import threading
 import time
 import warnings
 from collections import namedtuple
@@ -25,9 +39,187 @@ import torch
 from ..core.axes import axes_check_and_normalize, axes_dict, move_image_axes
 from ..core.normalize import NoNormalizer, Normalizer
 from ..core.tiling import tile_iterator
-from ..utils import _is_power_of_2
+from ..sample_patches import get_valid_inds
+from ..utils import _is_power_of_2, grid_divisible_patch_size
+from . import losses as L
 from .unet import StarDistNet
-from .weights import load_flax_checkpoint, params_from_flax
+from .weights import load_flax_checkpoint, params_from_flax, save_flax_checkpoint
+
+INIT_SEED = 42           # a fresh model's weights, as the reference's
+METRICS = ("loss", "prob_loss", "dist_loss", "prob_kld", "dist_relevant_mae",
+           "dist_relevant_mse", "dist_dist_iou_metric")
+
+
+class RollingSequence:
+    """Epoch-reshuffled batch index sequence (csbdeep's RollingSequence)."""
+
+    def __init__(self, data_size, batch_size, length, shuffle=True, seed=0, keras_kwargs=None):
+        self.data_size = int(data_size)
+        self.batch_size = int(batch_size)
+        self.length = int(length)
+        self.shuffle = bool(shuffle)
+        self.seed = int(seed)
+        self._perm_cache = {}
+
+    def __len__(self):
+        return self.length
+
+    def _perm(self, epoch):
+        if not self.shuffle:
+            return np.arange(self.data_size)
+        if epoch not in self._perm_cache:
+            self._perm_cache[epoch] = np.random.RandomState(self.seed + epoch).permutation(self.data_size)
+            if len(self._perm_cache) > 64:
+                self._perm_cache.pop(next(iter(self._perm_cache)))
+        return self._perm_cache[epoch]
+
+    def batch(self, i):
+        pos = np.arange(i * self.batch_size, (i + 1) * self.batch_size)
+        return np.array([self._perm(p // self.data_size)[p % self.data_size] for p in pos])
+
+    def __getitem__(self, i):
+        raise NotImplementedError
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+
+class StarDistDataBase(RollingSequence):
+    """Training data: foreground-biased patch centers with per-image caches,
+    grid slicing, the augmenter hook (reference base.py:92-209)."""
+
+    @property
+    def supports_raw(self):
+        """True when the targets can be built in the training step from the
+        raw batch (:meth:`raw_item`) instead of on the host."""
+        return self.n_classes is None and not getattr(self, "shape_completion", False)
+
+    def raw_item(self, i):
+        """The raw batch of the fused training step: the patches ``x``, the
+        label patches ``y`` (int32) and each patch's positive labels
+        ``labels`` (B, L), 0-padded to the largest count of the batch."""
+        _, X, Y = self._sample_batch(i)
+        X = np.stack(X)
+        if X.ndim == len(self.patch_size) + 1:  # no channel axis
+            X = np.expand_dims(X, -1)
+        Yi = np.stack([y.astype(np.int32, copy=False) for y in Y])
+        labs = [np.unique(y[y > 0]) for y in Yi]
+        labels = np.zeros((len(labs), max([1] + [len(l) for l in labs])), np.int32)
+        for j, l in enumerate(labs):
+            labels[j, :len(l)] = l
+        return {"x": X.astype(np.float32, copy=False), "y": Yi, "labels": labels}
+
+    def __init__(self, X, Y, n_rays, grid, batch_size, patch_size, length,
+                 n_classes=None, classes=None, use_gpu=False, sample_ind_cache=True,
+                 maxfilter_patch_size=None, augmenter=None, foreground_prob=0,
+                 keras_kwargs=None):
+        super().__init__(data_size=len(X), batch_size=batch_size, length=length, shuffle=True)
+
+        if isinstance(X, (np.ndarray, tuple, list)):
+            X = [x.astype(np.float32, copy=False) for x in X]
+
+        if not (len(X) == len(Y) and len(X) > 0):
+            raise ValueError("X and Y can't be empty and must have same length")
+
+        if classes is None:
+            classes = (None,) * len(X)
+        elif n_classes is None:
+            warnings.warn("Ignoring classes since n_classes is None")
+        if len(classes) != len(X):
+            raise ValueError("X and classes must have same length")
+
+        self.n_classes, self.classes = n_classes, classes
+        patch_size = grid_divisible_patch_size(patch_size, grid)
+
+        nD = len(patch_size)
+        assert nD in (2, 3)
+        x_ndim = X[0].ndim
+        assert x_ndim in (nD, nD + 1)
+
+        if isinstance(X, (np.ndarray, tuple, list)) and isinstance(Y, (np.ndarray, tuple, list)):
+            if not all(y.ndim == nD and x.ndim == x_ndim and x.shape[:nD] == y.shape for x, y in zip(X, Y)):
+                raise ValueError("images and masks should have corresponding shapes/dimensions")
+            if not all(x.shape[:nD] >= tuple(patch_size) for x in X):
+                raise ValueError(f"Some images are too small for given patch_size {patch_size}")
+
+        self.n_channel = None if x_ndim == nD else X[0].shape[-1]
+        if self.n_channel is not None and isinstance(X, (np.ndarray, tuple, list)):
+            assert all(x.shape[-1] == self.n_channel for x in X)
+
+        assert 0 <= foreground_prob <= 1
+
+        self.X, self.Y = X, Y
+        self.n_rays = n_rays
+        self.patch_size = patch_size
+        self.ss_grid = (slice(None),) + tuple(slice(0, None, g) for g in grid)
+        self.grid = tuple(grid)
+        self.use_gpu = bool(use_gpu)
+        if augmenter is None:
+            augmenter = lambda *args: args
+        if not callable(augmenter):
+            raise ValueError("augmenter must be None or callable")
+        self.augmenter = augmenter
+        self.foreground_prob = foreground_prob
+
+        from scipy.ndimage import maximum_filter
+        self.max_filter = lambda y, patch_size: maximum_filter(y, patch_size, mode="constant")
+        self.maxfilter_patch_size = maxfilter_patch_size if maxfilter_patch_size is not None else self.patch_size
+
+        self.sample_ind_cache = sample_ind_cache
+        self._ind_cache_fg = {}
+        self._ind_cache_all = {}
+        self.lock = threading.Lock()
+
+    def get_valid_inds(self, k, foreground_prob=None):
+        if foreground_prob is None:
+            foreground_prob = self.foreground_prob
+        foreground_only = np.random.uniform() < foreground_prob
+        _ind_cache = self._ind_cache_fg if foreground_only else self._ind_cache_all
+        if k in _ind_cache:
+            inds = _ind_cache[k]
+        else:
+            patch_filter = (
+                (lambda y, p: self.max_filter(y, self.maxfilter_patch_size) > 0)
+                if foreground_only else None
+            )
+            inds = get_valid_inds(self.Y[k], self.patch_size, patch_filter=patch_filter)
+            if self.sample_ind_cache:
+                with self.lock:
+                    _ind_cache[k] = inds
+        if foreground_only and len(inds[0]) == 0:
+            return self.get_valid_inds(k, foreground_prob=0)
+        return inds
+
+    def channels_as_tuple(self, x):
+        if self.n_channel is None:
+            return (x,)
+        return tuple(x[..., i] for i in range(self.n_channel))
+
+
+class History:
+    """Per-epoch logs (``history``, as Keras's) and the training metrics of
+    each step this call ran (``steps``)."""
+
+    def __init__(self):
+        self.history = {}
+        self.steps = {}
+
+    def append(self, logs):
+        for k, v in logs.items():
+            self.history.setdefault(k, []).append(float(v))
+
+
+def _np_rng_state(state):
+    """np.random.get_state() as tensors and numbers (a weights-only
+    torch.save holds it)."""
+    return {"keys": torch.from_numpy(np.asarray(state[1], np.int64)), "pos": int(state[2]),
+            "has_gauss": int(state[3]), "cached_gaussian": float(state[4])}
+
+
+def _np_rng_state_from(d):
+    return ("MT19937", d["keys"].numpy().astype(np.uint32), d["pos"], d["has_gauss"],
+            d["cached_gaussian"])
 
 
 class StarDistPadAndCropResizer:
@@ -118,6 +310,8 @@ class StarDistBase:
     def __init__(self, config=None, name=None, basedir=".", device="cuda",
                  inference_dtype=None):
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
         self.basedir = Path(basedir) if basedir is not None else None
         loading = config is None
         if loading:
@@ -128,21 +322,38 @@ class StarDistBase:
                 raise FileNotFoundError(f"config file doesn't exist: {cfg_path}")
             with open(cfg_path) as f:
                 config = self._config_class(**json.load(f))
+        elif not config.is_valid():
+            raise ValueError("Invalid configuration")
+        if name is None:
+            name = datetime.datetime.now().strftime("%Y-%m-%d-%H-%M-%S.%f")
         self.config = config
         self.name = name
+        self._model_prepared = False
+        # a callable the training loop calls with the name of each stage of a
+        # step as it is issued (start, wait, upload, targets, forward+backward,
+        # optimizer), to time them; None: nothing is called
+        self.step_marks = None
         self.net = StarDistNet(config)
+        # the reference's weights come from seed 42; these from a seeded CPU
+        # generator, so that the CPU and the card start from the same ones
+        self.net.init_weights(torch.Generator().manual_seed(INIT_SEED))
         if inference_dtype is None:
             inference_dtype = "bfloat16" if self.device.type == "cuda" else "float32"
         self.set_inference_precision(inference_dtype)
 
-        if loading:
-            weights = self._weights_file()
-            if weights is None:
-                warnings.warn(f"no network weights found in {self.logdir}")
+        if self.basedir is not None:
+            self.logdir.mkdir(parents=True, exist_ok=True)
+            if loading:
+                weights = self._weights_file()
+                if weights is None:
+                    warnings.warn(f"no network weights found in {self.logdir}")
+                else:
+                    self.load_weights(weights.name)
             else:
-                self.load_weights(weights)
+                with open(self.logdir / "config.json", "w") as f:
+                    json.dump(self.config.to_dict(), f)
         threshs = {}
-        if self.basedir is not None and name is not None:
+        if self.basedir is not None:
             try:
                 with open(self.logdir / "thresholds.json") as f:
                     threshs = json.load(f)
@@ -181,14 +392,332 @@ class StarDistBase:
             return None
         return ([f for f in files if prefer in f.name] + files)[0]
 
-    def load_weights(self, path):
-        """Load a flax msgpack checkpoint (the reference's ``.h5`` files)."""
-        path = Path(path)
+    def load_weights(self, name="weights_best.h5"):
+        """Load a flax msgpack checkpoint (the reference's ``.h5`` files):
+        ``name`` in the model folder, or an absolute path."""
+        path = Path(name) if Path(name).is_absolute() else self.logdir / name
         if path.read_bytes()[:4] == b"\x89HDF":
             raise NotImplementedError("Keras HDF5 import is not ported yet")
         sd = params_from_flax(self.net, load_flax_checkpoint(path))
         self.net.load_state_dict(sd)
         self.net.to(self.device)
+
+    def save_weights(self, name="weights_best.h5"):
+        """Write the weights into the model folder as the reference's flax
+        checkpoint, which both packages load."""
+        save_flax_checkpoint(self.logdir / name, self.net)
+
+    # -- training -------------------------------------------------------------
+
+    def _is_multiclass(self):
+        return self.config.n_classes is not None
+
+    def _parse_classes_arg(self, classes, length):
+        if isinstance(classes, str):
+            if classes != "auto":
+                raise ValueError(f"classes = '{classes}': only 'auto' supported as string")
+            if self.config.n_classes is None:
+                classes = None
+            elif self.config.n_classes == 1:
+                classes = (1,) * length
+            else:
+                raise ValueError("using classes = 'auto' for n_classes > 1 not supported")
+        elif isinstance(classes, (tuple, list, np.ndarray)):
+            if len(classes) != length:
+                raise ValueError(f"len(classes) should be {length}!")
+        else:
+            raise ValueError("classes should either be 'auto' or a list of scalars/label dicts")
+        return classes
+
+    def _device_targets_fn(self):
+        """The function that builds the training targets from a raw batch on
+        ``self.device``, or None (the model's subclass says)."""
+        return None
+
+    def prepare_for_training(self, optimizer=None):
+        """Set up the optimizer (Adam with optax's defaults: betas 0.9 /
+        0.999, eps 1e-8) and the targets function of the training step."""
+        if optimizer is None:
+            optimizer = torch.optim.Adam(self.net.parameters(), lr=self.config.train_learning_rate,
+                                         betas=(0.9, 0.999), eps=1e-8)
+        self.optimizer = optimizer
+        self._targets_fn = self._device_targets_fn()
+        self._model_prepared = True
+
+    def _loss_and_metrics(self, batch, generator=None):
+        """(loss, metrics dict) of a target batch ``{"x", "prob", "dist"}``
+        on the device; the metrics are computed without autograd."""
+        cfg = self.config
+        w = tuple(cfg.train_loss_weights)
+        n_rays = cfg.n_rays
+        prob_pred, dist_pred = self.net.train_forward(batch["x"], generator)
+        prob_true, dist_true = batch["prob"][..., 0], batch["dist"][..., :n_rays]
+        dist_mask = batch["dist"][..., n_rays:]
+        lp = L.prob_loss(prob_true, prob_pred[..., 0])
+        ld = L.dist_loss(dist_true, dist_mask, dist_pred, kind=cfg.train_dist_loss,
+                         reg_weight=float(cfg.train_background_reg))
+        loss = w[0] * lp + w[1] * ld
+        with torch.no_grad():
+            p, d = prob_pred.detach()[..., 0], dist_pred.detach()
+            metrics = {"loss": loss.detach(), "prob_loss": lp.detach(), "dist_loss": ld.detach(),
+                       "prob_kld": L.kld_metric(prob_true, p),
+                       "dist_relevant_mae": L.relevant_mae(dist_true, dist_mask, d),
+                       "dist_relevant_mse": L.relevant_mse(dist_true, dist_mask, d),
+                       "dist_dist_iou_metric": L.dist_iou_metric(dist_true, dist_mask, d)}
+        return loss, metrics
+
+    def _put_batch(self, batch):
+        """A batch's arrays as tensors on the device (non-blocking from
+        pinned memory); other entries as they are."""
+        return {k: (torch.as_tensor(v).to(self.device, non_blocking=True)
+                    if isinstance(v, (np.ndarray, torch.Tensor)) else v)
+                for k, v in batch.items()}
+
+    def _train_step(self, batch, generator=None, marks=None):
+        """One update from a device batch (raw: targets built first) ->
+        the metrics as one tensor on the device, in the order of METRICS.
+        ``marks(stage)``, where given, is called as each stage is issued."""
+        if "y" in batch:
+            batch = self._targets_fn(batch)
+        if marks is not None:
+            marks("targets")
+        loss, metrics = self._loss_and_metrics(batch, generator)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        if marks is not None:
+            marks("forward+backward")
+        self.optimizer.step()
+        if marks is not None:
+            marks("optimizer")
+        return torch.stack([metrics[k] for k in METRICS])
+
+    def _set_lr(self, lr):
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+
+    def _save_train_state(self, epoch, generator, lr, best_ckpt, best_plateau, plateau_wait,
+                          history, np_state):
+        """Everything a resumed training needs to continue bitwise:
+        ``train_state.pt`` (the JAX package's is ``train_state.msgpack``)."""
+        state = {"epoch": int(epoch), "lr": float(lr), "best_ckpt": float(best_ckpt),
+                 "best_plateau": float(best_plateau), "plateau_wait": int(plateau_wait),
+                 "history": {k: list(v) for k, v in history.items()},
+                 "params": {k: v.detach().cpu() for k, v in self.net.state_dict().items()},
+                 "opt_state": self.optimizer.state_dict(),
+                 "generator": generator.get_state()}
+        if np_state is not None:
+            state["np_rng"] = _np_rng_state(np_state)
+        torch.save(state, self.logdir / "train_state.pt")
+
+    def _load_train_state(self):
+        path = self.logdir / "train_state.pt" if self.basedir is not None else None
+        if path is None or not path.exists():
+            return None
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+    def _fit(self, data_train, val_batch, epochs, steps_per_epoch, resume=False):
+        """The training loop (reference base.py:751-870): a step per batch
+        from the producer thread, validation each epoch, ReduceLROnPlateau,
+        the checkpoints. ``resume=True`` restores ``train_state.pt`` (the
+        weights, Adam's state, the dropout generator, the learning-rate and
+        plateau trackers, the history, and numpy's global RNG as it was at
+        the data stream's epoch boundary) and continues as an uninterrupted
+        run would."""
+        cfg = self.config
+        generator = torch.Generator(device=self.device).manual_seed(0)   # dropout
+        history = History()
+        best_ckpt = best_plateau = np.inf
+        rlrop = cfg.train_reduce_lr
+        plateau_wait, lr = 0, float(cfg.train_learning_rate)
+        factor = patience = min_delta = None
+        if rlrop is not None:
+            factor = float(rlrop.get("factor", 0.5))
+            patience = int(rlrop.get("patience", 10))
+            min_delta = float(rlrop.get("min_delta", rlrop.get("epsilon", 0)))
+
+        start_epoch = 0
+        if resume:
+            state = self._load_train_state()
+            if state is None:
+                warnings.warn("resume=True but no train_state.pt found; starting from scratch")
+            else:
+                start_epoch = state["epoch"]
+                history.history = {k: list(v) for k, v in state["history"].items()}
+                if start_epoch >= epochs:
+                    print(f"resume: training already completed ({start_epoch}/{epochs} epochs)")
+                    return history
+                lr, best_ckpt, best_plateau = state["lr"], state["best_ckpt"], state["best_plateau"]
+                plateau_wait = state["plateau_wait"]
+                if "np_rng" in state:
+                    np.random.set_state(_np_rng_state_from(state["np_rng"]))
+                self.net.load_state_dict(state["params"])
+                self.optimizer.load_state_dict(state["opt_state"])
+                generator.set_state(state["generator"])
+                self._set_lr(lr)
+
+        if val_batch is not None:
+            val_batch = self._put_batch(val_batch)
+        jsonl_path = tb_writer = None
+        if self.basedir is not None:
+            log_dir = self.logdir / "logs"
+            log_dir.mkdir(parents=True, exist_ok=True)
+            jsonl_path = log_dir / "history.jsonl"
+            if getattr(cfg, "train_tensorboard", False):
+                try:
+                    from torch.utils.tensorboard import SummaryWriter
+                    tb_writer = SummaryWriter(log_dir=str(log_dir))
+                except Exception:
+                    tb_writer = None
+
+        # the producer runs ahead of the steps, so numpy's RNG state at each
+        # epoch's first item is taken in the data stream, for the resume
+        prefetch_q = queue.Queue(maxsize=4)
+        stop = threading.Event()
+        epoch_np_rng = {}
+        epoch_np_rng_lock = threading.Lock()
+        pin = self.device.type == "cuda"
+
+        def put(item):
+            while not stop.is_set():
+                try:
+                    prefetch_q.put(item, timeout=0.1)
+                    return
+                except queue.Full:
+                    pass
+
+        def producer():
+            for s in range(start_epoch * steps_per_epoch, epochs * steps_per_epoch):
+                if stop.is_set():
+                    return
+                if s % steps_per_epoch == 0:
+                    with epoch_np_rng_lock:
+                        epoch_np_rng[s // steps_per_epoch] = np.random.get_state()
+                try:
+                    item = data_train[s]
+                    if pin:
+                        item = {k: torch.from_numpy(v).pin_memory() if isinstance(v, np.ndarray)
+                                else v for k, v in item.items()}
+                except Exception as e:          # raised again by the consumer
+                    put(e)
+                    return
+                put(item)
+            with epoch_np_rng_lock:
+                epoch_np_rng[epochs] = np.random.get_state()
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        trackers = dict(best_ckpt=best_ckpt, best_plateau=best_plateau,
+                        plateau_wait=plateau_wait, lr=lr)
+        try:
+            self._fit_epochs(epochs, steps_per_epoch, prefetch_q, generator, history, jsonl_path,
+                             tb_writer, trackers, factor, patience, min_delta, rlrop, val_batch,
+                             start_epoch, epoch_np_rng, epoch_np_rng_lock)
+        finally:
+            if tb_writer is not None:
+                tb_writer.close()
+            stop.set()
+            thread.join()
+        self._training_finished()
+        return history
+
+    def _tb_log_images(self, tb_writer, val_batch, step, n_images=3):
+        """TensorBoard panels of the validation batch: input, true and
+        predicted object probability, three evenly spaced rays of the
+        predicted distances (the inference route's forward)."""
+        x = val_batch["x"][:n_images]
+        preds = [self.net(xi) for xi in x]
+        prob_p = torch.stack([p for p, _ in preds])[..., None]
+        dist_p = torch.stack([d.movedim(0, -1) for _, d in preds])
+        n_rays = self.config.n_rays
+        k = n_rays // min(3, n_rays)
+        groups = {"input": x[..., :1], "prob/true": val_batch["prob"][:n_images, ..., :1],
+                  "prob/pred": prob_p, "dist/pred": dist_p[..., 0:k * min(3, n_rays):k]}
+        for name, g in groups.items():
+            g = g.float().cpu().numpy()
+            for i in range(g.shape[0]):
+                for c in range(g.shape[-1]):
+                    img = g[i, ..., c]
+                    lo, hi = float(img.min()), float(img.max())
+                    img = (img - lo) / (hi - lo) if hi > lo else img * 0
+                    tag = name if g.shape[-1] == 1 else f"{name}/ch{c}"
+                    tb_writer.add_image(f"{tag}/{i}", img[None], step)
+
+    def _fit_epochs(self, epochs, steps_per_epoch, prefetch_q, generator, history, jsonl_path,
+                    tb_writer, trackers, factor, patience, min_delta, rlrop, val_batch,
+                    start_epoch, epoch_np_rng, epoch_np_rng_lock):
+        cfg = self.config
+        best_ckpt, best_plateau = trackers["best_ckpt"], trackers["best_plateau"]
+        plateau_wait, lr = trackers["plateau_wait"], trackers["lr"]
+        marks = self.step_marks
+        for epoch in range(start_epoch, epochs):
+            steps = []
+            for _ in range(steps_per_epoch):
+                if marks is not None:
+                    marks("start")
+                batch = prefetch_q.get()
+                if isinstance(batch, Exception):
+                    raise batch
+                if marks is not None:
+                    marks("wait")
+                batch = self._put_batch(batch)
+                if marks is not None:
+                    marks("upload")
+                steps.append(self._train_step(batch, generator, marks))
+            per_step = torch.stack(steps).cpu().numpy()           # the epoch's one readback
+            for j, k in enumerate(METRICS):
+                history.steps.setdefault(k, []).extend(per_step[:, j].tolist())
+            logs = {k: float(np.mean(per_step[:, j])) for j, k in enumerate(METRICS)}
+            logs["lr"] = lr
+            if val_batch is not None:
+                with torch.no_grad():
+                    _, val_metrics = self._loss_and_metrics(val_batch, generator)
+                logs.update({f"val_{k}": float(v) for k, v in val_metrics.items()})
+            history.append(logs)
+            monitor = logs.get("val_loss", logs["loss"])
+            print(f"epoch {epoch + 1}/{epochs} - " +
+                  " - ".join(f"{k}: {v:.4f}" for k, v in logs.items()), flush=True)
+            if jsonl_path is not None:
+                with open(jsonl_path, "a") as f:
+                    f.write(json.dumps({"epoch": epoch + 1, **logs}) + "\n")
+            if tb_writer is not None:
+                for k, v in logs.items():
+                    tb_writer.add_scalar(k, v, epoch + 1)
+                if val_batch is not None:
+                    self._tb_log_images(tb_writer, val_batch, epoch + 1)
+
+            if self.basedir is not None:
+                self.save_weights(cfg.train_checkpoint_epoch)
+                self.save_weights(cfg.train_checkpoint_last)
+                if monitor < best_ckpt:
+                    self.save_weights(cfg.train_checkpoint)
+            best_ckpt = min(best_ckpt, monitor)
+            if monitor < best_plateau - (min_delta or 0):
+                best_plateau = monitor
+                plateau_wait = 0
+            else:
+                plateau_wait += 1
+                if rlrop is not None and plateau_wait >= patience:
+                    lr *= factor
+                    self._set_lr(lr)
+                    plateau_wait = 0
+                    print(f"ReduceLROnPlateau: reducing learning rate to {lr:g}", flush=True)
+
+            if self.basedir is not None:
+                # numpy's RNG state at the next epoch's boundary of the data
+                # stream (the producer may not have got there yet)
+                np_state = None
+                for _ in range(2000):
+                    with epoch_np_rng_lock:
+                        np_state = epoch_np_rng.get(epoch + 1)
+                    if np_state is not None:
+                        break
+                    time.sleep(0.005)
+                self._save_train_state(epoch + 1, generator, lr, best_ckpt, best_plateau,
+                                       plateau_wait, history.history, np_state)
+
+    def _training_finished(self):
+        if self.basedir is not None:
+            self.save_weights(self.config.train_checkpoint_last)
 
     # -- prediction -----------------------------------------------------------
 
@@ -528,9 +1057,8 @@ class StarDistBase:
     def _compute_receptive_field(self, img_size=None):
         """Empirical receptive field: a delta image through the network,
         (before, after) the delta per spatial axis (reference
-        base.py:1704-1730). A net whose output ignores the delta (e.g. the
-        zero weights of a model built from a config) is replaced by a
-        freshly initialised one (seeded)."""
+        base.py:1704-1730). A net whose output ignores the delta (all-zero
+        weights, say) is replaced by a freshly initialised one (seeded)."""
         if img_size is None:
             img_size = tuple(g * (128 if self.config.n_dim == 2 else 64) for g in self.config.grid)
         if np.isscalar(img_size):

@@ -113,8 +113,9 @@ class StarDist3D(StarDistBase):
 
     ``StarDist3D(None, name, basedir)`` loads a saved model folder
     (``config.json``, ``thresholds.json``, ``weights_best.h5``);
-    ``StarDist3D(Config3D(...), device=...)`` builds one with zero weights
-    (see ``net.init_weights``). The resnet backbone is not ported."""
+    ``StarDist3D(Config3D(...), device=...)`` builds one with seeded random
+    weights (see ``net.init_weights``). The resnet backbone and training
+    are not ported."""
 
     @property
     def rays(self):

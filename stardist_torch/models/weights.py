@@ -1,11 +1,13 @@
-"""Reading the reference's checkpoints without flax or msgpack.
+"""Reading and writing the reference's checkpoints without flax or msgpack.
 
 ``stardist_tpu`` saves its parameters with ``flax.serialization.to_bytes``:
 a msgpack map ``{"params": {...}}`` (the file starts with
 ``\\x81\\xa6params``) whose array leaves are msgpack ext type 1, each holding
 a nested msgpack ``(shape, dtype name, raw buffer)``. :func:`msgpack_loads`
-decodes the subset of msgpack that flax emits; :func:`params_from_flax`
-maps the flax parameter tree onto :class:`.unet.StarDistNet`'s state dict.
+decodes the subset of msgpack that flax emits and :func:`msgpack_dumps`
+writes it as msgpack's packer does; :func:`params_from_flax` maps the flax
+parameter tree onto :class:`.unet.StarDistNet`'s state dict and
+:func:`params_to_flax` back.
 """
 from __future__ import annotations
 
@@ -101,6 +103,68 @@ def msgpack_loads(data):
     return out
 
 
+def _header(out, n, fix, fix_max, codes):
+    """A length header: the fix form below ``fix_max``, else the first of
+    the 8/16/32-bit ``codes`` (None where msgpack has no such form) that holds n."""
+    if n < fix_max:
+        out.append(fix | n)
+        return
+    for code, size in zip(codes, (1, 2, 4)):
+        if code is not None and n < 1 << (8 * size):
+            out.append(code)
+            out += n.to_bytes(size, "big")
+            return
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def _pack(obj, out):
+    if isinstance(obj, dict):
+        _header(out, len(obj), 0x80, 16, (None, 0xDE, 0xDF))
+        for k, v in obj.items():
+            _pack(k, out)
+            _pack(v, out)
+    elif isinstance(obj, (list, tuple)):
+        _header(out, len(obj), 0x90, 16, (None, 0xDC, 0xDD))
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, str):
+        b = obj.encode()
+        _header(out, len(b), 0xA0, 32, (0xD9, 0xDA, 0xDB))
+        out += b
+    elif isinstance(obj, bytes):
+        _header(out, len(obj), 0, 0, (0xC4, 0xC5, 0xC6))
+        out += obj
+    elif isinstance(obj, (int, np.integer)) and not isinstance(obj, bool) and obj >= 0:
+        obj = int(obj)
+        if obj < 128:
+            out.append(obj)
+        else:
+            size = next(s for s in (1, 2, 4, 8) if obj < 1 << (8 * s))
+            out.append({1: 0xCC, 2: 0xCD, 4: 0xCE, 8: 0xCF}[size])
+            out += obj.to_bytes(size, "big")
+    elif isinstance(obj, np.ndarray):
+        arr = np.ascontiguousarray(obj)
+        payload = msgpack_dumps((arr.shape, arr.dtype.name, arr.tobytes()))
+        n = len(payload)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixext:
+            out.append(fixext[n])
+        else:
+            _header(out, n, 0, 0, (0xC7, 0xC8, 0xC9))
+        out.append(_EXT_NDARRAY)
+        out += payload
+    else:
+        raise TypeError(f"no msgpack encoding for {type(obj).__name__} here")
+
+
+def msgpack_dumps(obj):
+    """Encode nested dicts, lists, strings, bytes, non-negative ints and
+    numpy arrays (as flax's ndarray ext type) as msgpack."""
+    out = bytearray()
+    _pack(obj, out)
+    return bytes(out)
+
+
 def load_flax_checkpoint(path):
     """The parameter tree of a flax msgpack checkpoint (nested dicts of
     numpy arrays)."""
@@ -135,3 +199,32 @@ def params_from_flax(net, params):
         sd[f"{head}.weight"] = torch.from_numpy(k.reshape(k.shape[-2:]).copy())
         sd[f"{head}.bias"] = torch.from_numpy(np.array(params[head]["bias"], np.float32))
     return sd
+
+
+def params_to_flax(net):
+    """The flax parameter tree of ``net`` (numpy float32 leaves), in the
+    order flax creates the modules: the grid pre-pooling convs, the
+    backbone, the feature conv, the heads; the inverse of
+    :func:`params_from_flax`."""
+    def arr(t):
+        return t.detach().cpu().float().numpy().copy()
+
+    def conv(blk):
+        return {"Conv_0": {"kernel": arr(blk.weight), "bias": arr(blk.bias)}}
+
+    n_pre = len(net.prepools) * net.n_conv
+    params = {f"ConvBlock_{i}": conv(net.top[i]) for i in range(n_pre)}
+    params["UNetBackbone_0"] = {f"ConvBlock_{j}": conv(b) for j, b in enumerate(net.backbone)}
+    for i in range(n_pre, len(net.top)):
+        params[f"ConvBlock_{i}"] = conv(net.top[i])
+    for head in ("head_prob", "head_dist"):
+        mod = getattr(net, head)
+        params[head] = {"kernel": arr(mod.weight).reshape((1,) * net.n_dim + tuple(mod.weight.shape)),
+                        "bias": arr(mod.bias)}
+    return params
+
+
+def save_flax_checkpoint(path, net):
+    """Write ``net``'s parameters as the reference's checkpoint file."""
+    with open(path, "wb") as f:
+        f.write(msgpack_dumps({"params": params_to_flax(net)}))

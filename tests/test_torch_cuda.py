@@ -387,3 +387,75 @@ def test_tiled_predict_instances_on_card(cuda_device):
     lab2, _ = gm.predict_instances(img, n_tiles=(2, 2))
     assert matching(lab1, lab2, thresh=0.5).accuracy >= 0.99
     assert matching(lbl, lab2, thresh=0.5).accuracy >= 0.8
+
+
+def _train_models(cuda_device, **kw):
+    from stardist_torch.models import Config2D
+    cfg = Config2D(n_rays=16, grid=(2, 2), unet_n_depth=2, unet_n_filter_base=16,
+                   net_conv_after_unet=32, train_patch_size=(128, 128), train_batch_size=2, **kw)
+    return [StarDist2D(cfg, name="t", basedir=None, device=d) for d in (cuda_device, "cpu")]
+
+
+def test_train_step_on_card_agrees_with_cpu(cuda_device):
+    """One step's targets, loss, metrics and gradients on the card against
+    the CPU's, same batch and weights, TF32 off (the fixture): dist exact,
+    prob 1e-6, metrics rtol 1e-4, gradients 1e-3 of their largest."""
+    from stardist_torch.models.model2d import StarDistData2D
+    fields = [_nuclei((256, 256), 30, s) for s in range(3)]
+    data = StarDistData2D([f[0] for f in fields], [f[1].astype(np.int32) for f in fields],
+                          batch_size=2, n_rays=16, length=1, patch_size=(128, 128), grid=(2, 2))
+    np.random.seed(0)
+    raw = data.raw_item(0)
+    outs = []
+    for m in _train_models(cuda_device):
+        m.prepare_for_training()
+        t = m._targets_fn(m._put_batch(raw))
+        loss, metrics = m._loss_and_metrics(t)
+        loss.backward()
+        outs.append((t, {k: float(v) for k, v in metrics.items()},
+                     {k: p.grad.cpu() for k, p in m.net.named_parameters()}))
+    (tg, mg, gg), (tc, mc, gc) = outs
+    assert torch.equal(tg["dist"][..., :16].cpu(), tc["dist"][..., :16])
+    assert (tg["prob"].cpu() - tc["prob"]).abs().max() <= 1e-6
+    for k in mc:
+        assert abs(mg[k] - mc[k]) <= 1e-4 * abs(mc[k]), k
+    for k in gc:
+        assert (gg[k] - gc[k]).abs().max() <= 1e-3 * gc[k].abs().max(), k
+
+
+def test_inference_after_training_uses_the_updated_weights(cuda_device):
+    """The conv kernel's packed weights are cached on the weight tensor and
+    keyed on its version: after Adam's in-place updates, and after
+    load_state_dict, the kernel path agrees with the plain path."""
+    from stardist_torch.models.model2d import StarDistData2D
+    gm, cm = _train_models(cuda_device)
+    fields = [_nuclei((256, 256), 30, s) for s in range(2)]
+    X, Y = [f[0] for f in fields], [f[1].astype(np.int32) for f in fields]
+    x = torch.from_numpy(X[0][:, :, None]).to(cuda_device)
+    before = gm.net(x)[1].clone()                    # fills the cache with the initial weights
+    gm.train(X, Y, validation_data=(X[:1], Y[:1]), seed=0, epochs=1, steps_per_epoch=3)
+    prob, dist = gm.net(x)
+    prob_p, dist_p = gm.net(x, plain=True)
+    assert (dist - before).abs().max() > 1e-3       # the weights did move
+    assert (prob - prob_p).abs().max() < 2e-2
+    assert (dist - dist_p).abs().max() < 2e-2 * max(1.0, dist_p.abs().max().item())
+    gm.net.load_state_dict(cm.net.state_dict())      # back to the initial weights
+    assert (gm.net(x)[1] - before).abs().max() < 1e-6
+
+
+def test_train_on_card_and_its_step_makes_no_host_sync(cuda_device):
+    gm, _ = _train_models(cuda_device)
+    fields = [_nuclei((256, 256), 30, s) for s in range(2)]
+    X, Y = [f[0] for f in fields], [f[1].astype(np.int32) for f in fields]
+    h = gm.train(X, Y, validation_data=(X[:1], Y[:1]), seed=0, epochs=2, steps_per_epoch=2)
+    assert len(h.history["loss"]) == 2 and np.isfinite(h.history["loss"]).all()
+    gm.prepare_for_training()
+    np.random.seed(1)
+    raw = {k: torch.from_numpy(v).pin_memory() if isinstance(v, np.ndarray) else v
+           for k, v in gm.data_train.raw_item(0).items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")          # a sync in the step raises
+    try:
+        gm._train_step(gm._put_batch(raw))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

@@ -55,7 +55,10 @@ def test_axes_tile_overlap_equals_reference(models2d):
 
 def test_receptive_field_of_zero_weights_falls_back_to_a_fresh_net():
     m = StarDist2D(Config2D(n_rays=8, grid=(2, 2), unet_n_depth=1, unet_n_filter_base=4,
-                            net_conv_after_unet=8), device="cpu")
+                            net_conv_after_unet=8), basedir=None, device="cpu")
+    with torch.no_grad():
+        for p in m.net.parameters():
+            p.zero_()
     rf = m._compute_receptive_field()
     assert len(rf) == 2 and all(lo > 0 and hi > 0 for lo, hi in rf)
     assert not any(b.weight.any() for b in m.net.conv_blocks())   # the model is untouched
