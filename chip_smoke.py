@@ -1,6 +1,6 @@
 """Smoke run of stardist_torch on one CUDA card.
 
-    python3 chip_smoke.py [--phases bcdefghijkl]
+    python3 chip_smoke.py [--phases bcdefghijklm]
 
 Phases (each prints one line; any failed check exits non-zero):
   (a) the card's name and power limit; build the four CUDA kernels from
@@ -47,7 +47,11 @@ Phases (each prints one line; any failed check exits non-zero):
       int32 and uint16 output; times of the kernel + memset and of the call
       (both packings) and of the plain version, by CUDA events, and the
       bound of the function counted from the field; then 66k polygons, more
-      than the 32-bit packing holds, equal too;
+      than the 32-bit packing holds, equal too; then the bench-shaped and the
+      adversarial field drawn with scale_dist (0.5, 0.5), (1.0, 0.5) and
+      (2.0, 1.0) about non-integer centres (scaled_field): labels exactly
+      the plain twin's with both packings, and the kernel + memset and call
+      times beside the unscaled kernel's on the same centres;
   (j) StarDist2D.predict_instances_device (2D_demo, 2048^2): labels and
       survivors must equal predict_instances on the card exactly, for a
       numpy and a pre-staged CUDA tensor input; walls with fetch=True and
@@ -78,7 +82,21 @@ Phases (each prints one line; any failed check exits non-zero):
       path against its plain path (FWD_TOL: the packed weights followed
       Adam's updates), and weights_best.h5 loaded into a fresh model that
       serves predict_instances through the conv, pair and raster kernels
-      and agrees with the same file loaded on the CPU.
+      and agrees with the same file loaded on the CPU;
+  (m) StarDist2D(None, "2D_demo", ...).optimize_thresholds on three seeded
+      1024^2 synthetic nuclei fields with the reference's defaults
+      (nms_threshs 0.3, 0.4, 0.5; golden section, tol 1e-2, maxiter 20;
+      n_tiles from _guess_n_tiles): the thresholds, the measure of
+      predict_instances at them, the wall split into predict, extraction,
+      the prefix NMS calls (images x nms_threshs), the probes (count, and
+      per probe the raster with the labels' copy, and the matching), one
+      probe's raster stage split, and the conv, pair and raster launches
+      (each nonzero); thresholds.json reloaded; on one 512^2 field's dense
+      prediction, the card's keep flags and (prob_thresh, measure) exactly
+      the CPU port's; then predict_instances on the 2048^2 field with
+      sparse=False (labels exactly sparse=True's) and scale=0.5, their
+      AP@0.5 and stage times, and the scaled call on a 512^2 crop against
+      the CPU (matching accuracy >= 0.99, as in (e)).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. With --phases, only (a) and the named phases
 run (e.g. --phases k to time the tiled call alone), and neither line is
@@ -112,6 +130,7 @@ CMP3D_SHAPE = (32, 96, 96)     # card vs CPU comparison crop, (h)
 RASTER_FIELDS = ((4096, 7000), (2048, 60_000))  # (i): (image side, polygons)
 RASTER_ADVERSARIAL = (2048, 200)  # (i): image side, polygons of each adversarial kind
 RASTER_MANY = (2048, 66_000)      # (i): more polygons than the 32-bit packing holds
+RASTER_SCALES = ((0.5, 0.5), (1.0, 0.5), (2.0, 1.0))  # (i): scale_dist of the scaled fields
 TILED_SIZE = 4096                # (k)
 TRAIN_FIELDS = (8, 1024)         # (l): synthetic nuclei fields (count, side)
 TRAIN_CONFIG = dict(grid=(2, 2))  # (l): Config2D's full width and training defaults
@@ -120,7 +139,9 @@ TRAIN_PROFILED = 10              # (l): steps in the torch.profiler window
 TARGET_TOL = 1e-6    # (l) prob targets, card vs CPU (dist: exact)
 METRIC_RTOL = 1e-4   # (l) loss and metrics, card vs CPU, TF32 off
 GRAD_TOL = 1e-3      # (l) gradients, relative to the parameter's largest |grad| on the CPU
-ALL_PHASES = "bcdefghijkl"       # (a) runs always
+THRESH_FIELDS = (3, 1024)        # (m): validation fields of optimize_thresholds (count, side)
+THRESH_CMP = 512                 # (m): card vs CPU search on one field's dense prediction
+ALL_PHASES = "bcdefghijklm"      # (a) runs always
 # one H100 SXM (NVIDIA's data sheet, dense, at the 700 W limit): bf16 tensor
 # cores, f32 outside them, HBM3
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -763,27 +784,40 @@ def adversarial_polygons(shape, R, seed, big, n_each=8):
             rng.permutation(n))
 
 
-def raster_bound(rt, d, p, shape, o, lab):
+def scaled_field(points, scale_dist, seed):
+    """A field's centres as a scaled predict_instances draws them: times
+    ``scale_dist`` (the grid points times 1 / scale), in f64, and one
+    centre in two moved by a seeded fraction of a pixel (f32)."""
+    rng = np.random.RandomState(seed)
+    p = (np.asarray(points, np.float64) * np.asarray(scale_dist, np.float64)).astype(np.float32)
+    p[1::2] += rng.uniform(-0.5, 0.5, p[1::2].shape).astype(np.float32)
+    return p
+
+
+def raster_bound(rt, d, p, shape, o, lab, scale_dist=(1, 1)):
     """Bound of the raster kernel's function on this field, counted from its
     data: every drawn polygon tests the pixels of its bounding box (its
-    longest ray about its centre) that lie in the image and in its splat
-    window, one inside test each (:func:`inside_test_ops`), after 2R
-    products for its vertices, at the f32 rate; the inputs read once and
-    the int32 label image written once."""
+    longest ray about its centre, times ``scale_dist`` per axis) that lie in
+    the image and in its splat window, one inside test each
+    (:func:`inside_test_ops`; scaled, after two products that unscale the
+    offset), after 2R products for its vertices, at the f32 rate; the
+    inputs read once and the int32 label image written once."""
     H, W = shape
     N, R = d.shape
-    window = rt.tile_window(d.max().item(), shape)
+    window = rt.tile_window(d.max().item(), shape, scale_dist)
     reach, centre = d.float().amax(1), p.float()
     origin = torch.round(centre).long() - window // 2
     side = []
     for ax, size in ((0, H), (1, W)):
-        lo = torch.maximum(torch.ceil(centre[:, ax] - reach).long(), origin[:, ax].clamp_min(0))
-        hi = torch.minimum(torch.floor(centre[:, ax] + reach).long(),
+        r = reach * float(scale_dist[ax])
+        lo = torch.maximum(torch.ceil(centre[:, ax] - r).long(), origin[:, ax].clamp_min(0))
+        hi = torch.minimum(torch.floor(centre[:, ax] + r).long(),
                            (origin[:, ax] + window).clamp_max(size) - 1)
         side.append((hi - lo + 1).clamp_min(0))
     pixels = int((side[0] * side[1] * (o > 0)).sum().item())
+    per_pixel = inside_test_ops(R) + (0 if tuple(scale_dist) == (1, 1) else 2)
     nbytes = sum(t.numel() * t.element_size() for t in (d, p, o, lab)) + H * W * 4
-    return bound(pixels * inside_test_ops(R) + N * 2 * R, nbytes, PEAK_F32)
+    return bound(pixels * per_pixel + N * 2 * R, nbytes, PEAK_F32)
 
 
 def raster_fields():
@@ -852,6 +886,44 @@ def phase_i(dev, rt, splat):
     print(f"(i) raster, {n} polygons at {size}^2 (value_bound {n} > {rt.PACK32_MAX}: the "
           f"64-bit packing): kernel == plain ({n_diff} differing pixels, {int(got.max())} "
           f"largest label)", flush=True)
+    del got, ref
+    fields = raster_fields()
+    for name, shape, dist, points, order, labels in (fields[0], fields[-1]):
+        for k, sd in enumerate(RASTER_SCALES):
+            d, p, o, lab = (torch.from_numpy(np.asarray(a)).to(dev) for a in (
+                dist, scaled_field(points, sd, seed=31 + k), order, labels))
+            n = len(d)
+            ref = rt.rasterize_polygons_tiles_plain(d, p, shape, o, lab, scale_dist=sd)
+            n_diff = 0
+            for vb in (n, None):
+                got = rt.rasterize_polygons_tiles_cuda(d, p, shape, o, lab, scale_dist=sd,
+                                                       value_bound=vb)
+                torch.cuda.synchronize()
+                n_diff += int((got != ref).sum().item())
+            check(n_diff == 0, f"raster kernel differs from plain on {n_diff} pixels ({name}, "
+                               f"scale_dist {sd})")
+            fg = int((ref > 0).sum().item())
+            del ref, got
+            inputs = rt.kernel_inputs(d, p, o, lab)
+            t_kern = cuda_ms(lambda: rt.draw(inputs, shape, True, sd), iters=10)
+            t_unscaled = cuda_ms(lambda: rt.draw(inputs, shape, True), iters=10)
+            t_call = cuda_ms(lambda: rt.rasterize_polygons_tiles_cuda(
+                d, p, shape, o, lab, scale_dist=sd, value_bound=n), iters=10)
+            t_plain = cuda_ms(lambda: rt.rasterize_polygons_tiles_plain(
+                d, p, shape, o, lab, scale_dist=sd), iters=1)
+            b_ms, b_by = raster_bound(rt, d, p, shape, o, lab, sd)
+            out.append(dict(name=f"{name}, scale_dist {sd}", n=n, n_diff=n_diff, err=0,
+                            ms=t_call, kernel_ms=t_kern, plain_ms=t_plain, bound_ms=b_ms,
+                            bound_by=b_by))
+            print(f"(i) raster, {name}, scale_dist {sd}, non-integer centres (window "
+                  f"{rt.tile_window(d.max().item(), shape, sd)}, {fg} foreground pixels): "
+                  f"kernel == plain with both packings ({n_diff} differing pixels); 32-bit "
+                  f"packing: kernel + memset {t_kern:.4f} ms (unscaled, same centres "
+                  f"{t_unscaled:.4f} ms), call {t_call:.4f} ms; plain {t_plain:.2f} ms; "
+                  f"bound of the function on this field {b_ms:.4f} ms ({b_by}), kernel + "
+                  f"memset at {100 * b_ms / t_kern:.1f}% of it, the call at "
+                  f"{100 * b_ms / t_call:.1f}%", flush=True)
+            del inputs
     return out
 
 
@@ -1295,6 +1367,111 @@ def phase_l(dev, kernels, StarDist2D, Config2D):
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+def phase_m(dev, kernels, matching, StarDist2D, rt):
+    """The threshold search on the card, then sparse=False and scale."""
+    import shutil
+    import tempfile
+    from stardist_torch.matching import matching_dataset
+    from stardist_torch.nms import _ind_prob_thresh, descending_order
+    from stardist_torch.utils import optimize_threshold
+    n, side = THRESH_FIELDS
+    fields = [synthetic_nuclei((side, side), seed=900 + i) for i in range(n)]
+    X, Y = [f[0] for f in fields], [f[1] for f in fields]
+    os.makedirs("build", exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_thresholds_", dir="build")
+    try:
+        shutil.copytree("models/examples/2D_demo", os.path.join(workdir, "2D_demo"))
+        model = StarDist2D(None, "2D_demo", workdir, device=dev)
+        model.predict_instances(X[0][:256, :256])          # warm-up
+        torch.cuda.synchronize()
+        reset_launches(kernels)
+        timings = {}
+        t0 = time.perf_counter()
+        opt = model.optimize_thresholds(X, Y, timings=timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.items()}
+        check(all(launches[k] > 0 for k in ("conv", "pair", "raster")),
+              f"(m) the search missed a kernel: launches {launches}")
+        with open(os.path.join(workdir, "2D_demo", "thresholds.json")) as f:
+            saved = json.load(f)
+        reloaded = StarDist2D(None, "2D_demo", workdir, device=dev)
+        check(saved == opt and tuple(reloaded.thresholds) == (opt["prob"], opt["nms"]),
+              f"thresholds.json {saved} does not reload as {opt}")
+        preds = [model.predict_instances(x)[0] for x in X]
+        measure = float(np.mean([s.accuracy for s in matching_dataset(
+            Y, preds, thresh=(0.3, 0.5, 0.7), show_progress=False)]))
+        check(np.isfinite(measure) and measure > 0.5, f"(m) measure {measure}")
+        probes = timings["probes"]
+        t = {k: v * 1e3 for k, v in timings.items() if k != "probes"}
+        lab0, det0 = model.predict_instances(X[0])
+        split = raster_split(model, det0, X[0].shape, rt)
+        print(f"(m) optimize_thresholds, {n} fields of {side}^2 (2D_demo, n_tiles "
+              f"{model._guess_n_tiles(X[0])}): prob {opt['prob']:.6f}, nms {opt['nms']}; mean "
+              f"accuracy over IoU 0.3/0.5/0.7 of predict_instances at them {measure:.4f}; wall "
+              f"{wall * 1e3:.1f} ms = predict {t['predict']:.1f} + extract {t['extract']:.1f} + "
+              f"prefix NMS {t['nms']:.1f} ({n * 3} calls) + {probes} probes x {n} images: "
+              f"raster and copy {t['render']:.1f} ({t['render'] / probes:.2f} per probe) + "
+              f"matching {t['matching']:.1f} ({t['matching'] / probes:.2f} per probe) ms "
+              f"(+ {wall * 1e3 - sum(t.values()):.1f} ms other); launches {launches}; one "
+              f"probe's raster stage at {side}^2: {split}", flush=True)
+
+        x_c, y_c = synthetic_nuclei((THRESH_CMP, THRESH_CMP), seed=950)
+        yhat = [model.predict(x_c)]
+        cpu = StarDist2D(None, "2D_demo", "models/examples", device="cpu")
+        prob = torch.from_numpy(yhat[0][0])
+        mask = _ind_prob_thresh(prob, float(yhat[0][0].max()) / 2)
+        o = descending_order(prob[mask])
+        cand = (prob[mask][o], torch.from_numpy(yhat[0][1])[mask][o],
+                (torch.nonzero(mask)[o] * torch.tensor(cpu.config.grid)).float())
+        keep_gpu = model._nms_keep(*(c.to(dev) for c in cand), 0.4).cpu()
+        keep_cpu = cpu._nms_keep(*cand, 0.4)
+        check(torch.equal(keep_gpu, keep_cpu), "(m) keep flags: card != CPU")
+        res_gpu = optimize_threshold([y_c], yhat, model, 0.4, verbose=0)
+        res_cpu = optimize_threshold([y_c], yhat, cpu, 0.4, verbose=0)
+        check(res_gpu == res_cpu, f"(m) search at {THRESH_CMP}^2: card {res_gpu} != CPU "
+                                  f"{res_cpu}")
+        print(f"(m) {THRESH_CMP}^2, the card's dense prediction: keep flags of {len(keep_cpu)} "
+              f"candidates ({int(keep_cpu.sum())} kept) and the search at nms 0.4, (prob_thresh, "
+              f"measure) = ({float(res_gpu[0]):.6f}, {float(res_gpu[1]):.4f}): card == CPU",
+              flush=True)
+
+        demo = StarDist2D(None, "2D_demo", "models/examples", device=dev)
+        img, lbl = synthetic_nuclei((E2E_SIZE, E2E_SIZE), seed=123)
+        lab_s, det_s = demo.predict_instances(img)
+        reset_launches(kernels)
+        lab_d, det_d = demo.predict_instances(img, sparse=False)
+        torch.cuda.synchronize()
+        launches_d = {name: k.launches for name, k in kernels.items()}
+        check(np.array_equal(lab_s, lab_d), "(m) sparse=False labels != sparse=True labels")
+        reset_launches(kernels)
+        lab_sc, det_sc = demo.predict_instances(img, scale=0.5)
+        torch.cuda.synchronize()
+        launches_sc = {name: k.launches for name, k in kernels.items()}
+        check(launches_d["raster"] > 0 and launches_sc["raster"] > 0 and launches_d["pair"] > 0,
+              f"(m) sparse=False / scale missed a kernel: {launches_d}, {launches_sc}")
+        ap_d = matching(lbl, lab_d, thresh=0.5).accuracy
+        ap_sc = matching(lbl, lab_sc, thresh=0.5).accuracy
+        check(ap_d >= 0.95 and lab_sc.shape == img.shape and lab_sc.max() > 0,
+              f"(m) sparse=False AP@0.5 {ap_d}, scaled labels {lab_sc.shape}")
+        crop = img[:THRESH_CMP, :THRESH_CMP]
+        lab_g = demo.predict_instances(crop, scale=0.5)[0]
+        lab_c = cpu.predict_instances(crop, scale=0.5)[0]
+        acc = matching(lab_c, lab_g, thresh=0.5).accuracy
+        check(acc >= 0.99, f"(m) scale=0.5 at {THRESH_CMP}^2, card vs CPU: accuracy {acc} < 0.99")
+
+        def stages(det):
+            return ", ".join(f"{k} {v * 1e3:.1f}" for k, v in det["timings_s"].items()) + " ms"
+        print(f"(m) predict_instances {E2E_SIZE}^2: sparse=False == sparse=True labels, "
+              f"{len(det_d['prob'])} objects, AP@0.5 {ap_d:.4f}, stages {stages(det_d)} "
+              f"(sparse=True: {stages(det_s)}), "
+              f"launches {launches_d}; scale=0.5: {len(det_sc['prob'])} objects, AP@0.5 "
+              f"{ap_sc:.4f}, stages {stages(det_sc)}, launches {launches_sc}; scale=0.5 at "
+              f"{THRESH_CMP}^2 card vs CPU: matching accuracy {acc:.4f}", flush=True)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=ALL_PHASES,
@@ -1364,6 +1541,8 @@ def main(argv=None):
         phase_k(dev, kernels, matching, StarDist2D, rt)
     if "l" in phases:
         phase_l(dev, kernels, StarDist2D, Config2D)
+    if "m" in phases:
+        phase_m(dev, kernels, matching, StarDist2D, rt)
     if phases != set(ALL_PHASES):
         return 0
     launches["conv3d"] = launches3d

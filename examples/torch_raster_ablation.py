@@ -123,7 +123,7 @@ def main(argv=None):
                 img = torch.zeros(shape[0] * shape[1], dtype=torch.int32, device=dev)
                 ptrs = [ctypes.c_void_p(0 if t is None else t.data_ptr())
                         for t in (*inputs, *tabs, img)]
-                err = fn(*ptrs, N, R, *shape, 32, rt.stream_ptr(dev))
+                err = fn(*ptrs, N, R, *shape, 32, 1.0, 1.0, 1.0, rt.stream_ptr(dev))   # unscaled
                 if err:
                     raise RuntimeError(f"CUDA error {err}")
                 return img

@@ -8,7 +8,13 @@
 // `window` = 2 ceil(max dist) + 4, capped at 2 max(H, W) + 4, from round(p)
 // - window / 2), the same inside test (the centre pixel, or wedge r by two
 // cross-product signs and the edge test cross_p * cross_c >= 0) and "largest
-// order value wins".
+// order value wins". It also draws the polygons stretched by scale_dist =
+// (s_r, s_c) about their centres, which the reference leaves to its splat
+// (stardist_tpu/ops/rasterize.py, _raster2d_impl): pixel q is tested at the
+// offset u = (q - p) * (1 / s) per axis, two roundings each, in the
+// polygon's own frame, and the window is 2 ceil(max dist * max(s)) + 4
+// (ceil in f64, as the wrapper's Python computes it). At s = (1, 1) the
+// factors are 1.0f and every label is as without the scale.
 //
 // What bounds it on the H100: the f32 work of one inside test per pixel of
 // each polygon's box (its reach about its centre), and the label image's
@@ -18,10 +24,11 @@
 //   pixel's offset u to within one, and the walk's own predicate is
 //   evaluated on the window k0 - 1, k0, k0 + 1 only (below);
 // - each polygon tests its own box of pixels, not the whole splat window
-//   (which is sized by the largest polygon of the field): the rows and
-//   columns within reach * (1 + 2^-6) + 1 of its centre (reach = its largest
-//   |dist|), clipped to its window and the image, unless the polygon is
-//   not well-formed (below), which takes the whole window;
+//   (which is sized by the largest polygon of the field): the rows within
+//   reach * (1 + 2^-6) / (1 / s_r) + 1 of its centre (reach = its largest
+//   |dist|), and the columns alike with s_c, clipped to its window and the
+//   image, unless the polygon is not well-formed (below), which takes the
+//   whole window;
 // - a persistent grid sized by occupancy; each block stages the wedge and
 //   feature tables once, as float4, and its warps take polygons grid-stride.
 //   A warp forms its polygon's edges (v0, e = v1 - v0, cross_c per wedge,
@@ -78,7 +85,12 @@
 // |u - v0|, which holds for t > reach (1 + 2^-8.4); there cross_p and
 // cross_c differ in sign, their product is at least 2^-130 in size, and the
 // pixel is outside. So a polygon whose wedges are all well-formed draws no
-// pixel beyond reach (1 + 2^-8.4) of its centre, inside its box. A polygon
+// pixel whose offset u lies beyond reach (1 + 2^-8.4) of its centre. With a
+// scale, |u_r| = fl(fl(q_r - p_r) * inv_r) and inv_r = fl(1 / s_r), so such
+// a pixel has |q_r - p_r| <= reach (1 + 2^-8.4) (1 + 2^-22) / inv_r, less
+// than the box's half side fl(fl(reach * (1 + 2^-6)) / inv_r) + 1 (and the
+// columns alike): it lies inside its box. The lookup's |u| guards below
+// read the scaled u, the frame in which the wedges are tested. A polygon
 // with a dist of 0, or adjacent dists more than ~2^10 sin(2 pi / R) times
 // apart (~200 at R = 32), or a non-finite dist is not well-formed and tests
 // its whole window, as the plain version does. (Non-finite dists: the plain version raises; the
@@ -177,7 +189,7 @@ raster_kernel(const float* __restrict__ dist, const float* __restrict__ centres,
               const long long* __restrict__ orders, const long long* __restrict__ labels,
               const float* __restrict__ dmax, const float* __restrict__ ftab_g,
               const float* __restrict__ wtab_g, T* img, int N, int R, int H, int W,
-              float rscale) {
+              float rscale, float inv_r, float inv_c, double smax) {
   __shared__ float4 tab[RMAX];           // the wedge table
   __shared__ float4 ftab[RMAX];          // sin phi_k, cos phi_k, sin phi_k+1, cos phi_k+1
   __shared__ float4 edge_s[WARPS][RMAX]; // per warp: v0r, v0c, er, ec of its polygon
@@ -188,9 +200,9 @@ raster_kernel(const float* __restrict__ dist, const float* __restrict__ centres,
   }
   __syncthreads();
   // the splat window of the ported tile kernel (ops/raster_tiles.py::tile_window)
-  const float cd = ceilf(*dmax);
+  const double cd = ceil((double)*dmax * smax);
   const int side_max = max(H, W);
-  const int window = cd < (float)side_max ? 2 * (int)cd + 4 : 2 * side_max + 4;
+  const int window = cd < (double)side_max ? 2 * (int)cd + 4 : 2 * side_max + 4;
   if (window <= 0) return;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -228,9 +240,9 @@ raster_kernel(const float* __restrict__ dist, const float* __restrict__ centres,
     ok = __all_sync(0xffffffffu, ok);
     __syncwarp();  // the edges, written by their lanes, read by every lane
     if (ok) {
-      const float half = __fadd_rn(__fmul_rn(reach, BOX_GROW), 1.0f);
-      clip_box(pr, half, rlo, rhi);
-      clip_box(pc, half, clo, chi);
+      const float grown = __fmul_rn(reach, BOX_GROW);
+      clip_box(pr, __fadd_rn(__fdiv_rn(grown, inv_r), 1.0f), rlo, rhi);
+      clip_box(pc, __fadd_rn(__fdiv_rn(grown, inv_c), 1.0f), clo, chi);
     }
     const int bw = chi - clo;
     // lanes per row: the box's width rounded up to a power of two, at most 32
@@ -239,9 +251,9 @@ raster_kernel(const float* __restrict__ dist, const float* __restrict__ centres,
     const long long low = labels != nullptr ? labels[n] + 1 : order;
     const T v = pack<T>(order, low);
     for (int row = rlo + (lane >> shift); row < rhi; row += rps) {
-      const float ur = __fsub_rn((float)row, pr);
+      const float ur = __fmul_rn(__fsub_rn((float)row, pr), inv_r);
       for (int col = clo + (lane & (lpr - 1)); col < chi; col += lpr) {
-        const float uc = __fsub_rn((float)col, pc);
+        const float uc = __fmul_rn(__fsub_rn((float)col, pc), inv_c);
         if (inside(ur, uc, tab, edge, cc, R, rscale)) atomicMax(img + (size_t)row * W + col, v);
       }
     }
@@ -271,7 +283,8 @@ cudaError_t resident_blocks(int* blocks) {
 }
 
 template <typename T>
-int launch(const void* const* a, void* img, int N, int R, int H, int W, cudaStream_t s) {
+int launch(const void* const* a, void* img, int N, int R, int H, int W, float inv_r,
+           float inv_c, double smax, cudaStream_t s) {
   int blocks = 0;
   cudaError_t err = resident_blocks<T>(&blocks);
   if (err != cudaSuccess) return (int)err;
@@ -281,7 +294,8 @@ int launch(const void* const* a, void* img, int N, int R, int H, int W, cudaStre
       static_cast<const float*>(a[0]), static_cast<const float*>(a[1]),
       static_cast<const long long*>(a[2]), static_cast<const long long*>(a[3]),
       static_cast<const float*>(a[4]), static_cast<const float*>(a[5]),
-      static_cast<const float*>(a[6]), static_cast<T*>(img), N, R, H, W, rscale);
+      static_cast<const float*>(a[6]), static_cast<T*>(img), N, R, H, W, rscale, inv_r,
+      inv_c, smax);
   return (int)cudaGetLastError();
 }
 
@@ -291,16 +305,18 @@ int launch(const void* const* a, void* img, int N, int R, int H, int W, cudaStre
 // labels (N,) i64 or null (then the low field is the order value); dmax (1,)
 // f32, the largest dist; ftab, wtab (4, R) f32, the feature and wedge
 // tables; img (H, W), zero-filled by the caller: u32 (bits = 32, both
-// fields < 2^16) or u64 (bits = 64). 3 <= R <= 128, N >= 1. Returns
-// cudaGetLastError() after the launch.
+// fields < 2^16) or u64 (bits = 64); inv_r, inv_c > 0, the f32 factors 1 /
+// s_r and 1 / s_c of the offsets; smax = max(s_r, s_c), of the window. 3 <=
+// R <= 128, N >= 1. Returns cudaGetLastError() after the launch.
 extern "C" int raster_labels(const void* dist, const void* centres, const void* orders,
                              const void* labels, const void* dmax, const void* ftab,
                              const void* wtab, void* img, int N, int R, int H, int W,
-                             int bits, void* stream) {
+                             int bits, float inv_r, float inv_c, double smax, void* stream) {
   if (N <= 0 || R < 3 || R > RMAX || H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  if (!(inv_r > 0.0f && inv_c > 0.0f && smax > 0.0)) return (int)cudaErrorInvalidValue;
   const void* a[7] = {dist, centres, orders, labels, dmax, ftab, wtab};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bits == 32) return launch<unsigned int>(a, img, N, R, H, W, s);
-  if (bits == 64) return launch<unsigned long long>(a, img, N, R, H, W, s);
+  if (bits == 32) return launch<unsigned int>(a, img, N, R, H, W, inv_r, inv_c, smax, s);
+  if (bits == 64) return launch<unsigned long long>(a, img, N, R, H, W, inv_r, inv_c, smax, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -19,13 +19,17 @@ runs on ``self.device``; only the survivors' arrays and the label image are
 copied back. With ``n_tiles`` the padded image is cut into overlapping
 tiles (``core/tiling.py``); each tile's forward and extraction run in turn
 and the candidate lists are joined in tile order. ``predict`` is the dense
-prediction (prob and dist maps as numpy).
+prediction (prob and dist maps as numpy); ``predict_instances(sparse=False)``
+thresholds those maps on ``self.device`` instead of extracting candidates.
+``optimize_thresholds`` searches the thresholds on validation images
+(``utils.optimize_threshold``).
 """
 from __future__ import annotations
 
 import datetime
 import json
 import math
+import numbers
 import queue
 import threading
 import time
@@ -40,12 +44,13 @@ from ..core.axes import axes_check_and_normalize, axes_dict, move_image_axes
 from ..core.normalize import NoNormalizer, Normalizer
 from ..core.tiling import tile_iterator
 from ..sample_patches import get_valid_inds
-from ..utils import _is_power_of_2, grid_divisible_patch_size
+from ..utils import _is_power_of_2, grid_divisible_patch_size, optimize_threshold
 from . import losses as L
 from .unet import StarDistNet
 from .weights import load_flax_checkpoint, params_from_flax, save_flax_checkpoint
 
 INIT_SEED = 42           # a fresh model's weights, as the reference's
+Thresholds = namedtuple("Thresholds", ("prob", "nms"))
 METRICS = ("loss", "prob_loss", "dist_loss", "prob_kld", "dist_relevant_mae",
            "dist_relevant_mse", "dist_dist_iou_metric")
 
@@ -361,7 +366,7 @@ class StarDistBase:
                 pass
         prob = threshs.get("prob")
         nms = threshs.get("nms")
-        self.thresholds = namedtuple("Thresholds", ("prob", "nms"))(
+        self.thresholds = Thresholds(
             prob=prob if prob is not None and 0 < prob < 1 else 0.5,
             nms=nms if nms is not None and 0 < nms < 1 else 0.4)
         self.net.to(self.device)
@@ -835,7 +840,7 @@ class StarDistBase:
         return tuple(out)
 
     @staticmethod
-    def _extract(prob, dist, prob_thresh, b_key):
+    def _extract(prob, dist, prob_thresh, b_key, max_candidates=None):
         """Candidates above ``prob_thresh`` and inside the border: (prob (K,),
         dist (K, R) clamped at 1e-3, points (K, n_dim) in output-grid units).
 
@@ -843,7 +848,9 @@ class StarDistBase:
         prob, ties in ascending flat index. The NMS then sorts it with
         :func:`..nms.descending_order`, which puts ties in descending flat
         index, as the reference's ``np.argsort(prob, kind="stable")[::-1]``
-        does on the same list."""
+        does on the same list. With ``max_candidates`` the list keeps its
+        first ``max_candidates`` (the top-K by prob), with a warning when
+        there were more."""
         mask = prob > prob_thresh
         for ax, (blo, bhi) in enumerate(b_key):
             sl = [slice(None)] * prob.dim()
@@ -856,6 +863,12 @@ class StarDistBase:
         idx = torch.nonzero(mask.flatten()).flatten()
         vals = prob.flatten()[idx]
         order = torch.sort(vals, descending=True, stable=True).indices
+        if max_candidates is not None:
+            cap = min(prob.numel(), int(max_candidates))
+            if len(order) > cap:
+                warnings.warn(f"number of candidates ({len(order)}) exceeds max_candidates "
+                              f"({cap}); keeping the top-K by probability")
+                order = order[:cap]
         idx, vals = idx[order], vals[order]
         d = dist.reshape(dist.shape[0], -1)[:, idx].t().clamp_min(1e-3)
         coords, rest = [], idx
@@ -872,17 +885,20 @@ class StarDistBase:
         float32, dist (K, R) float32, points (K, n_dim) int64), points in
         full-resolution pixels; see :meth:`_predict_sparse`.
         ``show_tile_progress`` shows nothing, as in the reference;
-        ``max_candidates`` and ``device_dist`` are not ported."""
-        if max_candidates is not None:
-            raise NotImplementedError("predict_sparse(max_candidates=...) is not ported yet")
+        ``max_candidates`` keeps the top-K of each tile (of the padded
+        image when it is one tile), with a warning when there were more, as
+        the reference's default route does; ``device_dist`` is not
+        ported."""
         if device_dist:
             raise NotImplementedError("predict_sparse(device_dist=True) is not ported: "
                                       "predict_instances keeps the candidates on the device")
         return tuple(t.cpu().numpy() for t in self._predict_sparse(
-            img, prob_thresh, axes, normalizer, n_tiles, b))
+            img, prob_thresh, axes, normalizer, n_tiles, b, max_candidates=max_candidates,
+            fold_padding=False))
 
     def _predict_sparse(self, img, prob_thresh=None, axes=None, normalizer=None,
-                        n_tiles=None, b=2, timings=None):
+                        n_tiles=None, b=2, timings=None, max_candidates=None,
+                        fold_padding=True):
         """Sparse prediction: (prob (K,), dist (K, R), points (K, n_dim))
         tensors on ``self.device``; points in full-resolution pixels.
 
@@ -891,7 +907,11 @@ class StarDistBase:
         ``img``) each tile's candidates are those of its core, minus the
         border ``b`` at the image's edges; the lists are joined in tile
         order, each in its tile's ``top_k`` order (reference
-        base.py:1395-1432), and candidates in the padding are dropped."""
+        base.py:1395-1432), and candidates in the padding are dropped. In
+        one tile, ``fold_padding`` leaves the padding out of the mask (the
+        reference's ``device_dist`` route, that of its ``predict_instances``)
+        instead of dropping its candidates after the extraction: the two
+        differ only in what ``max_candidates`` keeps."""
         if prob_thresh is None:
             prob_thresh = self.thresholds.prob
         if isinstance(img, torch.Tensor):
@@ -916,7 +936,8 @@ class StarDistBase:
                 b_key = tuple((s_s.start + (bb if s_d.start == 0 else 0),
                                (t_len - s_s.stop) + (bb if s_d.stop == sh else 0))
                               for s_s, s_d, t_len, sh in zip(s_src, s_dst, prob.shape, out_sh))
-                vals, d, points = self._extract(prob, dist, float(prob_thresh), b_key)
+                vals, d, points = self._extract(prob, dist, float(prob_thresh), b_key,
+                                                max_candidates)
                 offset = torch.tensor([s_d.start - s_s.start for s_s, s_d in zip(s_src, s_dst)],
                                       device=self.device)
                 parts.append((vals, d, (points + offset) * grid))
@@ -925,25 +946,37 @@ class StarDistBase:
                 t_ext += time.perf_counter() - t1
             t1 = time.perf_counter()
             vals, d, points = (torch.cat(t) for t in zip(*parts))
-            bounds = torch.tensor([resizer.padded_shape[a] - resizer.pad[a][1]
-                                   for a in axes_net if a != "C"], device=self.device)
-            inside = torch.all(points < bounds, dim=1)
+            inside = torch.all(points < self._inside_bounds(axes_net, resizer), dim=1)
             vals, d, points = vals[inside], d[inside], points[inside]
             _sync(self.device)
             t_ext += time.perf_counter() - t1
         else:
-            b_key = self._border_key(b, x, axes_net, resizer)
+            if fold_padding or resizer is None:
+                b_key = self._border_key(b, x, axes_net, resizer)
+            else:
+                b_key = (b if b is not None and not np.isscalar(b)
+                         else ((-1, -1) if b is None else (b, b),) * len(self.config.grid))
             t0 = time.perf_counter()
             prob, dist = self.net(self._upload(x))
             _sync(self.device)
             t1 = time.perf_counter()
-            vals, d, points = self._extract(prob, dist, float(prob_thresh), b_key)
+            vals, d, points = self._extract(prob, dist, float(prob_thresh), b_key,
+                                            max_candidates)
             points = points * grid[None]
+            if not fold_padding and resizer is not None:
+                inside = torch.all(points < self._inside_bounds(axes_net, resizer), dim=1)
+                vals, d, points = vals[inside], d[inside], points[inside]
             _sync(self.device)
             t_fwd, t_ext = t1 - t0, time.perf_counter() - t1
         if timings is not None:
             timings.update(forward=t_fwd, extract=t_ext)
         return vals, d, points
+
+    def _inside_bounds(self, axes_net, resizer):
+        """Per spatial axis, the end of the image within the padded input
+        (full-resolution pixels): the reference's ``filter_points``."""
+        return torch.tensor([resizer.padded_shape[a] - resizer.pad[a][1]
+                             for a in axes_net if a != "C"], device=self.device)
 
     def predict(self, img, axes=None, normalizer=None, n_tiles=None, show_tile_progress=True):
         """Dense prediction (reference base.py:1325-1373): prob (sp/g...) and
@@ -951,6 +984,10 @@ class StarDistBase:
         and cropped to the image; dist clamped at 1e-3. ``show_tile_progress``
         is taken so that calls written for the reference run; it shows
         nothing, as in the reference."""
+        return tuple(t.cpu().numpy() for t in self._predict(img, axes, normalizer, n_tiles))
+
+    def _predict(self, img, axes=None, normalizer=None, n_tiles=None, show_tile_progress=True):
+        """:meth:`predict` as float32 tensors on ``self.device``."""
         x, axes_net, resizer, n_tiles = self._predict_setup(img, axes, normalizer, n_tiles)
         channel = axes_dict(axes_net)["C"]
         if np.prod(n_tiles) > 1:
@@ -959,79 +996,145 @@ class StarDistBase:
             result = []
             for n_ch in (1, self.config.n_rays):
                 sh[channel] = n_ch
-                result.append(np.empty(sh, np.float32))
+                result.append(torch.empty(sh, dtype=torch.float32, device=self.device))
             for tile, s_src, s_dst in self._tiles(x, axes_net, n_tiles):
-                for part, part_tile in zip(result, self._forward_np(tile)):
-                    part[s_dst] = part_tile[s_src]
+                for part, part_tile in zip(result, self._forward(tile)):
+                    part[tuple(s_dst)] = part_tile[tuple(s_src)]
         else:
-            result = self._forward_np(x)
+            result = self._forward(x)
         prob, dist = (resizer.after(part, axes_net) for part in result)
-        prob = np.take(prob, 0, axis=channel)
-        dist = np.moveaxis(np.maximum(1e-3, dist), channel, -1)
+        prob = prob.select(channel, 0)
+        dist = torch.movedim(dist.clamp_min(1e-3), channel, -1)
         return prob, dist
 
-    def _forward_np(self, x):
-        """Forward of one (sp..., C) numpy input -> channels-last numpy
-        (prob (sp'..., 1), dist (sp'..., R))."""
+    def _forward(self, x):
+        """Forward of one (sp..., C) numpy input -> channels-last tensors on
+        ``self.device`` (prob (sp'..., 1), dist (sp'..., R))."""
         prob, dist = self.net(self._upload(x))
-        return prob.cpu().numpy()[..., None], np.moveaxis(dist.cpu().numpy(), 0, -1)
+        return prob[..., None], torch.movedim(dist, 0, -1)
 
     def predict_instances(self, img, axes=None, normalizer=None, sparse=True, prob_thresh=None,
                           nms_thresh=None, scale=None, n_tiles=None, show_tile_progress=True,
                           verbose=False, return_labels=True, predict_kwargs=None,
-                          nms_kwargs=None, overlap_label=None, return_predict=False, *, b=2):
+                          nms_kwargs=None, overlap_label=None, return_predict=False, *, b=2,
+                          fetch=True):
         """Predict -> NMS -> rasterize, with the reference's parameters
         (base.py:1479-1571). Returns (labels (*sp) int32 numpy, details
         dict: the survivors (see the model's ``_render_survivors``),
-        ``nms_counters`` and the stage times ``timings_s``). ``img`` and
-        ``n_tiles`` as in :meth:`_predict_sparse`; ``show_tile_progress`` as
-        in :meth:`predict`; ``b`` is the candidates' border. The parameters
-        that would change the result and are not ported yet raise
-        ``NotImplementedError`` when set: ``sparse=False``, ``scale``,
-        ``predict_kwargs``, ``nms_kwargs``, ``overlap_label`` and
-        ``return_predict``."""
-        unported = {"sparse": not sparse, "scale": scale is not None,
-                    "predict_kwargs": bool(predict_kwargs), "nms_kwargs": bool(nms_kwargs),
-                    "overlap_label": overlap_label is not None, "return_predict": return_predict}
-        for name, is_set in unported.items():
-            if is_set:
-                raise NotImplementedError(f"predict_instances({name}=...) is not ported yet")
-        return self._predict_instances(img, axes, normalizer, prob_thresh, nms_thresh,
-                                       n_tiles, b, return_labels, verbose)
+        ``nms_counters`` and the stage times ``timings_s``); with
+        ``return_predict``, ``((labels, details), (prob, dist))``, the dense
+        maps of :meth:`predict` (it sets ``sparse=False``, with a warning).
 
-    def _predict_instances(self, img, axes, normalizer, prob_thresh, nms_thresh, n_tiles,
-                           b, return_labels, verbose, **render_kw):
-        """:meth:`predict_instances`; ``render_kw`` goes to the model's
-        ``_render_survivors``."""
-        if isinstance(img, torch.Tensor):
-            shape_inst = tuple(int(s) for s in img.shape[:self.config.n_dim])
-        else:
-            _axes = self._normalize_axes(img, axes)
-            x_shape = move_image_axes(img, _axes, self.config.axes, adjust_singletons=True).shape
-            shape_inst = tuple(s for s, a in zip(x_shape, self.config.axes) if a != "C")
+        ``img`` and ``n_tiles`` as in :meth:`_predict_sparse`;
+        ``show_tile_progress`` as in :meth:`predict`; ``b`` is the
+        candidates' border. ``sparse=False`` thresholds the dense maps of
+        :meth:`predict`, kept on ``self.device`` (the model's
+        ``_nms_dense``), instead of extracting candidates. ``scale`` (a
+        number for every spatial axis, or one per axis of ``img``) zooms the
+        image on the host (``scipy.ndimage.zoom``, order 1) before the
+        prediction and draws the labels at the image's own shape.
+        ``predict_kwargs`` go to the candidate extraction (``b``,
+        ``max_candidates``, ``device_dist``: in one tile, whether the
+        padding leaves the mask before the top-K, the default, or its
+        candidates are dropped after it; see :meth:`_predict_sparse`) or to
+        :meth:`predict`; ``nms_kwargs`` to the NMS (``b``, ``use_bbox``,
+        ``use_kdtree``, ``verbose``). ``fetch=False`` (2D) leaves the labels
+        and the survivors as tensors on ``self.device``. ``overlap_label``
+        raises ``NotImplementedError`` when set (the reference's 2D model
+        does the same)."""
+        if overlap_label is not None:
+            raise NotImplementedError("predict_instances(overlap_label=...) is not ported yet")
+        predict_kwargs = dict(predict_kwargs or {})
+        nms_kwargs = dict(nms_kwargs or {})
+        if return_predict and sparse:
+            sparse = False
+            warnings.warn("Setting sparse to False because return_predict is True")
+        nms_kwargs.setdefault("verbose", verbose)
+        shape_inst = self._shape_inst(img, axes)
+        if scale is not None:
+            img, scale = self._zoom(img, axes, scale, verbose)
         timings = {}
-        prob, dist, points = self._predict_sparse(
-            img, prob_thresh=prob_thresh, axes=axes, normalizer=normalizer,
-            n_tiles=n_tiles, b=b, timings=timings)
-        labels, details = self._instances_from_prediction(
-            shape_inst, prob, dist, points, nms_thresh=nms_thresh,
-            return_labels=return_labels, timings=timings, verbose=verbose, **render_kw)
-        details["timings_s"] = timings
-        return labels, details
+        if sparse:
+            predict_kwargs.setdefault("b", b)
+            fold_padding = bool(predict_kwargs.pop("device_dist", True))
+            prob, dist, points = self._predict_sparse(img, prob_thresh, axes, normalizer,
+                                                      n_tiles, timings=timings,
+                                                      fold_padding=fold_padding, **predict_kwargs)
+        else:
+            nms_kwargs.setdefault("b", b)
+            t0 = time.perf_counter()
+            prob, dist = self._predict(img, axes, normalizer, n_tiles, show_tile_progress,
+                                       **predict_kwargs)
+            _sync(self.device)
+            timings.update(forward=time.perf_counter() - t0)
+            points = None
+        res = self._instances_from_prediction(
+            shape_inst, prob, dist, points, prob_thresh=prob_thresh, nms_thresh=nms_thresh,
+            scale=scale, return_labels=return_labels, timings=timings,
+            render_kw=dict(fetch=fetch), **nms_kwargs)
+        res[1]["timings_s"] = timings
+        if return_predict:
+            return res, (prob.cpu().numpy(), dist.cpu().numpy())
+        return res
 
-    def _instances_from_prediction(self, img_shape, prob, dist, points,
-                                   nms_thresh=None, return_labels=True,
-                                   timings=None, verbose=False, **render_kw):
+    def _shape_inst(self, img, axes):
+        """The label image's shape: the spatial axes of ``img`` in the
+        model's axes order."""
+        if isinstance(img, torch.Tensor):
+            return tuple(int(s) for s in img.shape[:self.config.n_dim])
+        _axes = self._normalize_axes(img, axes)
+        x_shape = move_image_axes(img, _axes, self.config.axes, adjust_singletons=True).shape
+        return tuple(s for s, a in zip(x_shape, self.config.axes) if a != "C")
+
+    def _zoom(self, img, axes, scale, verbose=False):
+        """``img`` zoomed by ``scale`` on the host, as the reference does
+        (base.py:1507-1521), and the scale as a dict of the axes of ``img``,
+        checked by the model's ``_rescale``."""
+        from scipy import ndimage as ndi
+        if isinstance(img, torch.Tensor):
+            raise ValueError("scale needs a numpy image")
+        _axes = self._normalize_axes(img, axes)
+        if isinstance(scale, numbers.Number):
+            scale = tuple(scale if a in "XYZ" else 1 for a in _axes)
+        scale = tuple(scale)
+        if len(scale) != len(_axes):
+            raise ValueError(f"scale {scale} must be of length {len(_axes)}")
+        for s, a in zip(scale, _axes):
+            if not s > 0:
+                raise ValueError("scale values must be greater than 0")
+            if not (s in (1, None) or a in "XYZ"):
+                warnings.warn(f"replacing scale value {s} for non-spatial axis {a} with 1")
+        scale = tuple(s if a in "XYZ" else 1 for s, a in zip(scale, _axes))
+        scale_dict = dict(zip(_axes, scale))
+        self._rescale(scale_dict)
+        if verbose:
+            print(f"scaling image by factors {scale} for axes {_axes}")
+        return ndi.zoom(img, scale, order=1), scale_dict
+
+    def _instances_from_prediction(self, img_shape, prob, dist, points, prob_thresh=None,
+                                   nms_thresh=None, scale=None, return_labels=True,
+                                   timings=None, render_kw=None, **nms_kwargs):
         """NMS + rasterization -> (labels, details); reference
-        model2d.py:512-563 and model3d.py:314-359 (sparse branch).
+        model2d.py:512-563 and model3d.py:314-359. ``points=None``: the
+        dense maps (prob (sp...), dist (sp..., R) on ``self.device``), else
+        a candidate list. ``scale``, a dict of the image's axes, scales the
+        survivors back to the image (the model's ``_rescale``).
         ``timings["raster"]`` includes the copy back to the host."""
+        if prob_thresh is None:
+            prob_thresh = self.thresholds.prob
         if nms_thresh is None:
             nms_thresh = self.thresholds.nms
+        render_kw = dict(render_kw or {})
+        if scale is not None:
+            render_kw["rescale"] = self._rescale(scale)
         counters = {}
         t0 = time.perf_counter()
-        points, probi, disti = self._nms_sparse(
-            dist, prob, points, nms_thresh=nms_thresh, verbose=verbose,
-            stats=counters)[:3]
+        if points is None:
+            nms = self._nms_dense(dist, prob, prob_thresh, nms_thresh, stats=counters,
+                                  **nms_kwargs)
+        else:
+            nms = self._nms_sparse(dist, prob, points, nms_thresh, stats=counters, **nms_kwargs)
+        points, probi, disti = nms[:3]
         _sync(self.device)
         t1 = time.perf_counter()
         labels, details = self._render_survivors(img_shape, disti, points, probi,
@@ -1040,6 +1143,51 @@ class StarDistBase:
             timings.update(nms=t1 - t0, raster=time.perf_counter() - t1)
         details["nms_counters"] = counters
         return labels, details
+
+    def optimize_thresholds(self, X_val, Y_val, nms_threshs=(0.3, 0.4, 0.5),
+                            iou_threshs=(0.3, 0.5, 0.7), predict_kwargs=None,
+                            optimize_kwargs=None, save_to_json=True, *, timings=None):
+        """For each of ``nms_threshs``, the golden-section search of
+        ``utils.optimize_threshold`` over prob_thresh on the dense
+        predictions of ``X_val`` (``n_tiles`` from :meth:`_guess_n_tiles`
+        unless ``predict_kwargs`` names it), keeping the pair of the best
+        mean matching score against ``Y_val`` (reference base.py:1657-1691).
+        Sets ``self.thresholds``, writes ``thresholds.json`` into the model
+        folder when it has one and ``save_to_json`` is set, and returns the
+        dict. ``timings``, if a dict, receives the seconds of the predictions
+        (``predict``) and of the search's stages (see
+        ``utils.optimize_threshold``)."""
+        predict_kwargs = {} if predict_kwargs is None else predict_kwargs
+        optimize_kwargs = {} if optimize_kwargs is None else optimize_kwargs
+
+        def _predict_kwargs(x):
+            if "n_tiles" in predict_kwargs:
+                return predict_kwargs
+            return {**predict_kwargs, "n_tiles": self._guess_n_tiles(x), "show_tile_progress": False}
+
+        t0 = time.perf_counter()
+        Yhat_val = [self.predict(x, **_predict_kwargs(x))[:2] for x in X_val]
+        if timings is not None:
+            timings["predict"] = time.perf_counter() - t0
+
+        opt_prob_thresh, opt_measure, opt_nms_thresh = None, -np.inf, None
+        for _opt_nms_thresh in nms_threshs:
+            _opt_prob_thresh, _opt_measure = optimize_threshold(
+                Y_val, Yhat_val, model=self, nms_thresh=_opt_nms_thresh,
+                iou_threshs=list(iou_threshs), timings=timings, **optimize_kwargs)
+            if _opt_measure > opt_measure:
+                opt_prob_thresh, opt_measure, opt_nms_thresh = (
+                    _opt_prob_thresh, _opt_measure, _opt_nms_thresh)
+        opt_threshs = dict(prob=float(opt_prob_thresh), nms=float(opt_nms_thresh))
+
+        self.thresholds = Thresholds(**opt_threshs)
+        print("Using optimized values: prob_thresh={prob:g}, nms_thresh={nms:g}.".format(
+            prob=self.thresholds.prob, nms=self.thresholds.nms))
+        if save_to_json and self.basedir is not None:
+            print("Saving to 'thresholds.json'.")
+            with open(self.logdir / "thresholds.json", "w") as f:
+                json.dump(opt_threshs, f)
+        return opt_threshs
 
     def _guess_n_tiles(self, img):
         """Tile counts that cut ``img`` into about training-batch-sized
@@ -1095,8 +1243,18 @@ class StarDistBase:
     def _config_class(self):
         raise NotImplementedError()
 
-    def _nms_sparse(self, dist, prob, points, nms_thresh, verbose, stats):
+    def _nms_sparse(self, dist, prob, points, nms_thresh, stats=None, **nms_kwargs):
         raise NotImplementedError()
 
-    def _render_survivors(self, img_shape, disti, points, probi, return_labels=True):
+    def _nms_dense(self, dist, prob, prob_thresh, nms_thresh, stats=None, **nms_kwargs):
+        raise NotImplementedError()
+
+    def _rescale(self, scale):
+        raise NotImplementedError()
+
+    def _nms_keep(self, prob, dist, points, nms_thresh):
+        raise NotImplementedError()
+
+    def _render_survivors(self, img_shape, disti, points, probi, return_labels=True,
+                          fetch=True):
         raise NotImplementedError()

@@ -9,11 +9,12 @@ import torch
 
 from ..core.config import BaseConfig
 from ..geometry import dist_to_coord, polygons_to_label
-from ..nms import non_maximum_suppression_sparse
+from ..nms import non_maximum_suppression, non_maximum_suppression_sparse
+from ..ops.nms import nms_polygons
 from ..ops.edt import edt_prob_batch
 from ..ops.stardist2d import _default_max_dist, march_steps, star_dist2d
 from ..sample_patches import sample_patches
-from ..utils import _normalize_grid, clear_border, edt_prob
+from ..utils import _normalize_grid, as_tensor_on, clear_border, edt_prob
 from .base import StarDistBase, StarDistDataBase
 
 
@@ -286,22 +287,50 @@ class StarDist2D(StarDistBase):
 
         return fn
 
-    def _nms_sparse(self, dist, prob, points, nms_thresh, verbose, stats):
+    def _nms_sparse(self, dist, prob, points, nms_thresh, stats=None, **nms_kwargs):
         return non_maximum_suppression_sparse(dist, prob, points, nms_thresh=nms_thresh,
-                                              verbose=verbose, stats=stats)
+                                              stats=stats, **nms_kwargs)
+
+    def _nms_dense(self, dist, prob, prob_thresh, nms_thresh, stats=None, **nms_kwargs):
+        return non_maximum_suppression(dist, prob, grid=self.config.grid,
+                                       prob_thresh=prob_thresh, nms_thresh=nms_thresh,
+                                       stats=stats, **nms_kwargs)
+
+    def _rescale(self, scale):
+        """The survivors' factors back to the image, (1 / s_Y, 1 / s_X), of a
+        scale dict of the image's axes (reference model2d.py:341-347)."""
+        if not (isinstance(scale, dict) and "X" in scale and "Y" in scale):
+            raise ValueError("scale must be a dictionary with entries for 'X' and 'Y'")
+        return 1 / scale["Y"], 1 / scale["X"]
+
+    def _nms_keep(self, prob, dist, points, nms_thresh):
+        """Greedy-NMS keep flags (a bool tensor) of a candidate list sorted by
+        descending prob, points in full-resolution pixels (reference
+        model2d.py:356-362): the threshold search's NMS, one per image and
+        ``nms_thresh``, whose first n flags are those of NMS on the first n
+        candidates. Numpy inputs go to ``self.device``."""
+        dist = as_tensor_on(dist, self.device)
+        return nms_polygons(dist, as_tensor_on(points, dist.device), thresh=float(nms_thresh))
 
     def _render_survivors(self, img_shape, disti, points, probi, return_labels=True,
-                          fetch=True):
+                          fetch=True, rescale=(1, 1)):
         """Rasterize the NMS survivors on their device, to uint16 when the
         label count fits (as the reference's device path ships it), and
-        build the result dict. With ``fetch`` the labels come back as int32
-        numpy and the dict holds numpy ``dist``, ``coord``, ``points``
-        (int32) and ``prob``; without it the labels and ``dist``, ``points``,
-        ``prob`` stay tensors."""
+        build the result dict. ``rescale`` (the model's ``_rescale``)
+        scales the centres (in f64, as the reference) and the polygons back
+        to the image. With ``fetch`` the labels come back as int32 numpy and
+        the dict holds numpy ``dist``, ``coord``, ``points`` (int32; f64
+        when scaled) and ``prob``; without it the labels and ``dist``,
+        ``points``, ``prob`` stay tensors."""
+        scaled = tuple(rescale) != (1, 1)
+        if scaled:
+            points = points.double() * torch.tensor(rescale, dtype=torch.float64,
+                                                    device=points.device)
         labels = None
         if return_labels:
             small = len(probi) < 2 ** 16 - 1
             labels = polygons_to_label(disti, points, img_shape, prob=probi,
+                                       scale_dist=rescale,
                                        out_dtype=torch.uint16 if small else torch.int32)
         if not fetch:
             return labels, dict(dist=disti, points=points, prob=probi)
@@ -309,8 +338,9 @@ class StarDist2D(StarDistBase):
             labels = labels.cpu().numpy().astype(np.int32)
         disti, points, probi = (t.cpu().numpy() if isinstance(t, torch.Tensor) else t
                                 for t in (disti, points, probi))
-        coord = dist_to_coord(disti, points)
-        return labels, dict(dist=disti, coord=coord, points=points.astype(np.int32), prob=probi)
+        coord = dist_to_coord(disti, points, scale_dist=rescale)
+        return labels, dict(dist=disti, coord=coord,
+                            points=points if scaled else points.astype(np.int32), prob=probi)
 
     def predict_instances_device(self, img, axes=None, normalizer=None, prob_thresh=None,
                                  nms_thresh=None, b=2, verbose=False, fetch=True):
@@ -330,8 +360,8 @@ class StarDist2D(StarDistBase):
         ``self.device``."""
         if self.config.n_classes is not None:
             raise NotImplementedError("multiclass prediction is not ported yet")
-        return self._predict_instances(img, axes, normalizer, prob_thresh, nms_thresh, None,
-                                       b, True, verbose, fetch=fetch)
+        return self.predict_instances(img, axes, normalizer, prob_thresh=prob_thresh,
+                                      nms_thresh=nms_thresh, verbose=verbose, b=b, fetch=fetch)
 
     @property
     def _config_class(self):

@@ -9,9 +9,9 @@ import torch
 from ..core.config import BaseConfig
 from ..geometry import polyhedron_to_label
 from ..matching import relabel_sequential
-from ..nms import non_maximum_suppression_3d_sparse
+from ..nms import non_maximum_suppression_3d_inds, non_maximum_suppression_3d_sparse
 from ..rays3d import Rays_GoldenSpiral, rays_from_json
-from ..utils import _normalize_grid
+from ..utils import _normalize_grid, as_tensor_on
 from .base import StarDistBase
 
 
@@ -121,15 +121,35 @@ class StarDist3D(StarDistBase):
     def rays(self):
         return rays_from_json(self.config.rays_json)
 
-    def _nms_sparse(self, dist, prob, points, nms_thresh, verbose, stats):
+    def _nms_sparse(self, dist, prob, points, nms_thresh, stats=None, **nms_kwargs):
         return non_maximum_suppression_3d_sparse(dist, prob, points, self.rays,
-                                                 nms_thresh=nms_thresh, verbose=verbose,
-                                                 stats=stats)
+                                                 nms_thresh=nms_thresh, stats=stats,
+                                                 **nms_kwargs)
 
-    def _render_survivors(self, img_shape, disti, points, probi, return_labels=True):
+    def _nms_dense(self, dist, prob, prob_thresh, nms_thresh, stats=None, **nms_kwargs):
+        raise NotImplementedError("StarDist3D.predict_instances(sparse=False) is not ported yet")
+
+    def _rescale(self, scale):
+        raise NotImplementedError("StarDist3D.predict_instances(scale=...) is not ported yet")
+
+    def _nms_keep(self, prob, dist, points, nms_thresh):
+        """Greedy-NMS keep flags (a bool tensor) of a candidate list sorted by
+        descending prob, points in full-resolution voxels (reference
+        model3d.py:361-370), for the threshold search. Numpy inputs go to
+        ``self.device``."""
+        dist = as_tensor_on(dist, self.device)
+        return non_maximum_suppression_3d_inds(
+            dist, as_tensor_on(points, dist.device), self.rays,
+            scores=as_tensor_on(prob, dist.device), thresh=float(nms_thresh))
+
+    def _render_survivors(self, img_shape, disti, points, probi, return_labels=True,
+                          fetch=True):
         """Rasterize the NMS survivors (on their device), relabel the volume
         sequentially and build the result dict (numpy); reference
-        model3d.py:372-405."""
+        model3d.py:372-405. The labels are relabelled on the host, so
+        ``fetch=False`` is not ported."""
+        if not fetch:
+            raise NotImplementedError("fetch=False is not ported for 3D")
         rays = self.rays
         labels = None
         if return_labels:

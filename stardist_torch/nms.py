@@ -8,17 +8,91 @@ inputs go to ``device`` (the card unless the caller passes ``device="cpu"``).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .ops.nms import nms_polygons, nms_polyhedra
 from .ops.polyhedron import ray_tensors
-from .utils import as_tensor_on
+from .utils import _normalize_grid, as_tensor_on
 
 
 def descending_order(prob):
     """The candidate order contract: descending prob, ties in descending
     index — ``np.argsort(prob, kind="stable")[::-1]``."""
     return torch.flip(torch.sort(prob, stable=True).indices, dims=(0,))
+
+
+def _ind_prob_thresh(prob, prob_thresh, b=2):
+    """Candidate mask of a dense prob map (numpy, or a tensor on its
+    device): prob strictly above ``prob_thresh`` (compared in prob's type,
+    as numpy compares with a Python float) and at least ``b`` pixels from
+    the border (per axis a (lo, hi) pair, or a scalar for all)."""
+    if b is not None and np.isscalar(b):
+        b = ((b, b),) * prob.ndim
+    ind_thresh = prob > float(prob_thresh)
+    if b is not None:
+        zeros_like = torch.zeros_like if isinstance(prob, torch.Tensor) else np.zeros_like
+        inner = zeros_like(ind_thresh)
+        inner[tuple(slice(lo if lo > 0 else None, -hi if hi > 0 else None)
+                    for lo, hi in b)] = True
+        ind_thresh &= inner
+    return ind_thresh
+
+
+def non_maximum_suppression(dist, prob, grid=(1, 1), b=2, nms_thresh=0.5, prob_thresh=0.5,
+                            use_bbox=True, use_kdtree=True, verbose=False, *, stats=None,
+                            device="cuda"):
+    """NMS of dense 2D predictions, dist (Ny, Nx, R) and prob (Ny, Nx): the
+    candidates of :func:`_ind_prob_thresh`, in :func:`descending_order`,
+    through the greedy NMS (the pair kernel on the card), all on the
+    device of ``dist`` (numpy inputs go to ``device``). ``use_bbox`` and
+    ``use_kdtree`` change nothing, as in the reference.
+
+    Returns (points, prob, dist) of the survivors, in descending-prob order;
+    points (int64) in full-resolution pixels (times ``grid``)."""
+    as_numpy = not isinstance(dist, torch.Tensor)
+    dist = as_tensor_on(dist, device)
+    prob = as_tensor_on(prob, dist.device)
+    assert prob.dim() == 2 and dist.dim() == 3 and prob.shape == dist.shape[:2]
+    grid = _normalize_grid(grid, 2)
+
+    mask = _ind_prob_thresh(prob, prob_thresh, b)
+    scores = prob[mask]                                  # row-major, as np.where
+    order = descending_order(scores)
+    probi, disti = scores[order], dist[mask][order]
+    points = torch.nonzero(mask)[order] * torch.tensor(grid, device=dist.device)
+    keep = non_maximum_suppression_inds(disti, points, scores=probi, thresh=nms_thresh,
+                                        stats=stats)
+    if verbose:
+        print("keeping %s/%s polygons" % (int(keep.sum()), len(keep)))
+    out = points[keep], probi[keep], disti[keep]
+    return tuple(t.cpu().numpy() for t in out) if as_numpy else out
+
+
+def _non_maximum_suppression_old(coord, prob, grid=(1, 1), b=2, nms_thresh=0.5,
+                                 prob_thresh=0.5, verbose=False, max_bbox_search=True, *,
+                                 device="cuda"):
+    """The reference's legacy NMS on a dense coordinate map (numpy; coord
+    (Ny, Nx, 2, n_rays), prob (Ny, Nx)): each candidate's dists are
+    recovered from its vertices about its grid centre (in numpy, as the
+    reference does) and its NMS runs on ``device``. Returns the grid
+    indices (Ny, Nx) of the survivors. ``max_bbox_search`` changes
+    nothing."""
+    assert prob.ndim == 2 and coord.ndim == 4
+    grid = _normalize_grid(grid, 2)
+    mask = _ind_prob_thresh(prob, prob_thresh, b)
+    points = np.stack(np.where(mask), axis=1)
+    scores = prob[mask]
+    centers = points * np.array(grid).reshape(1, 2)
+    rel = coord[mask] - centers[:, :, None]
+    dist = np.sqrt(np.sum(rel ** 2, axis=1)).astype(np.float32)
+    ind = np.argsort(scores, kind="stable")[::-1]
+    survivors = np.zeros(len(ind), bool)
+    survivors[ind] = non_maximum_suppression_inds(dist[ind], centers[ind].astype(np.float32),
+                                                  scores[ind], nms_thresh, device=device)
+    if verbose:
+        print("keeping %s/%s polygons" % (np.count_nonzero(survivors), len(survivors)))
+    return points[survivors]
 
 
 def non_maximum_suppression_sparse(dist, prob, points, b=2, nms_thresh=0.5, use_bbox=True,

@@ -4,10 +4,13 @@ rasterize_polygons_tiles``).
 
 Per pixel, the largest packed value ``(order << 32) | (label + 1)`` among
 the polygons whose splat window (side ``window`` from ``round(p) - window
-// 2``) covers it and that contain it. A pixel is inside a polygon if it is
-the centre, or if for some ray r it lies in wedge r by two cross-product
-signs (``c_r*ur - s_r*uc >= 0`` and ``c_{r+1}*ur - s_{r+1}*uc < 0``) and
-passes the edge test ``cross_p * cross_c >= 0``. The int64 packing has no
+// 2``) covers it and that contain it. A pixel q is tested in the polygon's
+own frame, at the offset ``u = (q - p) * (1 / scale_dist)`` per axis (the
+reference's scaled splat, ``stardist_tpu/ops/rasterize.py``; exactly ``q -
+p`` at ``scale_dist == (1, 1)``): it is inside if u = 0, or if for some ray
+r, u lies in wedge r by two cross-product signs (``c_r*ur - s_r*uc >= 0``
+and ``c_{r+1}*ur - s_{r+1}*uc < 0``) and passes the edge test ``cross_p *
+cross_c >= 0``. The int64 packing has no
 16-bit limit, so unlike the reference nothing is declined.
 
 :func:`rasterize_polygons_tiles_cuda` launches ``csrc/raster_tiles.cu``
@@ -30,18 +33,27 @@ from .cuda_build import CudaKernel, stream_ptr
 
 KERNEL = CudaKernel(
     "raster_tiles.cu", "raster_labels",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+    + [ctypes.c_float, ctypes.c_float, ctypes.c_double, ctypes.c_void_p],
     extra_flags=("-fmad=false",))
 PACK32_MAX = 0xFFFF  # the largest order value and label + 1 of the 32-bit packing
 
 _PLAIN_ELEMS = 1 << 21  # polygons x window^2 per step of the plain version
 
 
-def tile_window(dmax, shape):
-    """Splat window of the tile kernel: 2*ceil(max dist)+4, capped by the
-    image (``rasterize_polygons_tiles`` of the reference)."""
-    window = 2 * int(np.ceil(float(dmax))) + 4
+def tile_window(dmax, shape, scale_dist=(1, 1)):
+    """Splat window of the tile kernel: 2*ceil(max dist * max(scale_dist))+4
+    (in f64), capped by the image (the reference's ``rasterize_polygons``)."""
+    window = 2 * int(np.ceil(float(dmax) * max(scale_dist))) + 4
     return int(min(window, 2 * max(shape) + 4))
+
+
+def inv_scale(scale_dist):
+    """The per-axis factors (1 / s_r, 1 / s_c) of the pixels' offsets, each
+    formed in f64 and rounded once to f32, as the reference forms them."""
+    if len(scale_dist) != 2 or not all(float(s) > 0 for s in scale_dist):
+        raise ValueError(f"scale_dist must be two positive values, got {scale_dist}")
+    return tuple(float(np.float32(1.0 / float(s))) for s in scale_dist)
 
 
 @functools.lru_cache(maxsize=None)
@@ -60,7 +72,7 @@ def _tables(R, device):
     return tuple(torch.from_numpy(t.astype(np.float32)).to(device) for t in (feat, wedge))
 
 
-def _setup(dist, points, shape, order_values, labels):
+def _setup(dist, points, shape, order_values, labels, scale_dist=(1, 1)):
     """The kernel's inputs, computed with torch on the inputs' device:
     features (N, 4R) ``d*s0 | d*c0 | d1*s1 | d1*c1`` (one f32 product each,
     the reference's feature rows), centres (N, 2) f32, window origins (N, 2)
@@ -69,7 +81,7 @@ def _setup(dist, points, shape, order_values, labels):
     dev = dist.device
     dist = dist.to(torch.float32)
     points = points.to(dev, torch.float32).contiguous()
-    window = tile_window(dist.max().item(), shape)
+    window = tile_window(dist.max().item(), shape, scale_dist)
     trig = _tables(dist.shape[1], dev)[0]
     d1 = torch.roll(dist, -1, dims=1)
     feats = torch.cat([dist * trig[0], dist * trig[1], d1 * trig[2], d1 * trig[3]],
@@ -114,22 +126,24 @@ def _inside_wedges(feats, ur, uc):
 
 
 def rasterize_polygons_tiles_plain(dist, points, shape, order_values, labels=None,
-                                   out_dtype=torch.int32):
+                                   out_dtype=torch.int32, scale_dist=(1, 1)):
     """Per pixel, the polygon with the largest positive order value wins.
 
     dist (N, R), points (N, 2), order_values (N,) int (0 = never drawn),
     labels (N,) int or None; tensors on one device (any device). Returns an
     (H, W) tensor of ``out_dtype`` on that device: the winner's
     ``labels[i] + 1`` (its order value when ``labels`` is None), 0 for
-    background. The plain version of the CUDA kernel: chunks of polygons,
+    background. The polygons are stretched by ``scale_dist`` per axis about
+    their centres. The plain version of the CUDA kernel: chunks of polygons,
     the window's pixels of each, the wedge test, and a scatter-max of the
     packed values."""
     H, W = (int(s) for s in shape)
+    inv = torch.tensor(inv_scale(scale_dist), dtype=torch.float32, device=dist.device)
     img = torch.zeros(H * W, dtype=torch.int64, device=dist.device)
     if dist.shape[0] == 0:
         return unpack_labels(img, (H, W), out_dtype)
     feats, points, origin, packed, window = _setup(dist, points, (H, W), order_values,
-                                                   labels)
+                                                   labels, scale_dist)
     ar = torch.arange(window, dtype=torch.int32, device=dist.device)
     chunk = max(1, _PLAIN_ELEMS // (window * window))
     for i0 in range(0, feats.shape[0], chunk):
@@ -137,8 +151,9 @@ def rasterize_polygons_tiles_plain(dist, points, shape, order_values, labels=Non
         n = feats[sl].shape[0]
         rr = origin[sl, 0:1] + ar[None]                          # (n, Wn)
         cc = origin[sl, 1:2] + ar[None]
-        ur = rr.float()[:, :, None] - points[sl, 0, None, None]  # (n, Wn, 1)
-        uc = cc.float()[:, None, :] - points[sl, 1, None, None]  # (n, 1, Wn)
+        # (q - p) * (1 / s), two roundings: the offset in the polygon's frame
+        ur = (rr.float()[:, :, None] - points[sl, 0, None, None]) * inv[0]  # (n, Wn, 1)
+        uc = (cc.float()[:, None, :] - points[sl, 1, None, None]) * inv[1]  # (n, 1, Wn)
         ur, uc = (t.reshape(n, -1) for t in torch.broadcast_tensors(ur, uc))
         inside = _inside_wedges(feats[sl], ur, uc) & (packed[sl] > 0)[:, None]
         in_img = (((rr >= 0) & (rr < H))[:, :, None]
@@ -161,17 +176,19 @@ def kernel_inputs(dist, points, order_values, labels):
             dist.amax().reshape(1) if dist.numel() else dist.new_zeros(1))
 
 
-def draw(inputs, shape, pack32):
+def draw(inputs, shape, pack32, scale_dist=(1, 1)):
     """Zero a packed label image ((H * W,) int32 with ``pack32``, else
     int64) and launch the kernel on ``inputs`` (:func:`kernel_inputs`)."""
     dist = inputs[0]
     H, W = shape
+    inv_r, inv_c = inv_scale(scale_dist)
     img = torch.zeros(H * W, dtype=torch.int32 if pack32 else torch.int64, device=dist.device)
     N, R = dist.shape
     if N > 0:
         tabs = _tables(R, dist.device)
         ptrs = [ctypes.c_void_p(0 if t is None else t.data_ptr()) for t in (*inputs, *tabs, img)]
-        KERNEL.launch(*ptrs, N, R, H, W, 32 if pack32 else 64, stream_ptr(dist.device))
+        KERNEL.launch(*ptrs, N, R, H, W, 32 if pack32 else 64, inv_r, inv_c,
+                      float(max(scale_dist)), stream_ptr(dist.device))
     return img
 
 
@@ -189,7 +206,8 @@ def narrow(img, shape, out_dtype):
 
 
 def rasterize_polygons_tiles_cuda(dist, points, shape, order_values, labels=None,
-                                  out_dtype=torch.int32, *, value_bound=None):
+                                  out_dtype=torch.int32, scale_dist=(1, 1), *,
+                                  value_bound=None):
     """:func:`rasterize_polygons_tiles_plain` on CUDA tensors: launches
     ``csrc/raster_tiles.cu``, or raises. It makes no host sync.
 
@@ -206,5 +224,5 @@ def rasterize_polygons_tiles_cuda(dist, points, shape, order_values, labels=None
                              f"on {t.device}")
     shape = tuple(int(s) for s in shape)
     pack32 = value_bound is not None and value_bound <= PACK32_MAX
-    img = draw(kernel_inputs(dist, points, order_values, labels), shape, pack32)
+    img = draw(kernel_inputs(dist, points, order_values, labels), shape, pack32, scale_dist)
     return narrow(img, shape, out_dtype)

@@ -13,7 +13,10 @@ cross-product signs of the reference's TPU kernel) and runs
 :func:`rasterize_polygons_splat` on CPU tensors: the atan2-wedge inside test
 of :func:`.polygon.points_in_polygons` and a scatter-max, as the
 reference's ``_raster2d_impl`` does everywhere but on a TPU. The two tests
-can differ only for a pixel lying exactly on a ray.
+can differ only for a pixel lying exactly on a ray. Both draw the polygons
+stretched by ``scale_dist`` per axis about their centres as the reference's
+splat does: the pixel's offset from the centre times ``1 / scale_dist`` is
+tested in the polygon's own frame.
 In 3D the window is a cube and the inside test is the barycentric face test
 of :func:`.polyhedron.points_in_polyhedra` (plain torch on any device).
 """
@@ -23,7 +26,7 @@ import torch
 
 from .polygon import points_in_polygons
 from .polyhedron import points_in_polyhedra, polyhedron_face_inverses
-from .raster_tiles import rasterize_polygons_tiles_cuda, tile_window, unpack_labels
+from .raster_tiles import inv_scale, rasterize_polygons_tiles_cuda, tile_window, unpack_labels
 
 
 CHUNK = 1024   # polygons per scatter step (bounds the (chunk, window^2) temporaries)
@@ -31,14 +34,14 @@ CHUNK_3D = 8   # polyhedra per scatter step (bounds the (chunk, window^3, 8) tem
 CHUNK_3D_CUDA = 64  # the same on a GPU (fewer, larger launches)
 
 
-def raster_window(dmax, shape):
-    """Splat window: the tile kernel's window (2*ceil(max dist)+4, capped by
-    the image) rounded up to a multiple of 16."""
-    return -(-tile_window(dmax, shape) // 16) * 16
+def raster_window(dmax, shape, scale_dist=(1, 1)):
+    """Splat window: the tile kernel's window (2*ceil(max dist * max scale)
+    + 4, capped by the image) rounded up to a multiple of 16."""
+    return -(-tile_window(dmax, shape, scale_dist) // 16) * 16
 
 
 def rasterize_polygons(dist, points, shape, order_values, labels=None,
-                       out_dtype=torch.int32, *, value_bound=None):
+                       out_dtype=torch.int32, scale_dist=(1, 1), *, value_bound=None):
     """Per pixel, the polygon with the largest positive order value wins.
 
     dist (N, R), points (N, 2), order_values (N,) int (0 = never drawn);
@@ -46,25 +49,30 @@ def rasterize_polygons(dist, points, shape, order_values, labels=None,
     (torch.int32, or torch.uint16 when every pixel value fits, as the
     reference's device path ships it) on that device: the winner's
     ``labels[i] + 1`` (or its order value when ``labels`` is None), 0 for
-    background. CUDA tensors go through the tile kernel (``value_bound``,
+    background. The polygons are stretched by ``scale_dist`` = (s_r, s_c),
+    both positive, about their centres. CUDA tensors go through the tile
+    kernel (``value_bound``,
     the caller's bound on the order values and labels + 1, lets it pack
     into 32 bits: :func:`.raster_tiles.rasterize_polygons_tiles_cuda`), CPU
     tensors through the splat."""
     if dist.is_cuda:
         return rasterize_polygons_tiles_cuda(dist, points, shape, order_values, labels,
-                                             out_dtype=out_dtype, value_bound=value_bound)
+                                             out_dtype=out_dtype, scale_dist=scale_dist,
+                                             value_bound=value_bound)
     if dist.device.type != "cpu":
         raise RuntimeError(f"no raster for device {dist.device}")
-    return rasterize_polygons_splat(dist, points, shape, order_values, labels, out_dtype)
+    return rasterize_polygons_splat(dist, points, shape, order_values, labels, out_dtype,
+                                    scale_dist)
 
 
 def rasterize_polygons_splat(dist, points, shape, order_values, labels=None,
-                             out_dtype=torch.int32):
+                             out_dtype=torch.int32, scale_dist=(1, 1)):
     """:func:`rasterize_polygons` with the atan2-wedge inside test and a
     scatter-max, in plain torch on any device."""
     dev = dist.device
     H, W = (int(s) for s in shape)
     N = dist.shape[0]
+    inv = torch.tensor(inv_scale(scale_dist), dtype=torch.float32, device=dev)
     img = torch.zeros(H * W, dtype=torch.int64, device=dev)
     if N == 0:
         return unpack_labels(img, (H, W), out_dtype)
@@ -73,7 +81,7 @@ def rasterize_polygons_splat(dist, points, shape, order_values, labels=None,
     order_values = order_values.to(dev, torch.int64)
     labs = order_values if labels is None else labels.to(dev, torch.int64) + 1
     packed = (order_values << 32) | labs
-    window = raster_window(dist.max().item(), shape)
+    window = raster_window(dist.max().item(), shape, scale_dist)
     ar = torch.arange(window, dtype=torch.int32, device=dev)
     for i0 in range(0, N, CHUNK):
         d = dist[i0:i0 + CHUNK]
@@ -86,7 +94,9 @@ def rasterize_polygons_splat(dist, points, shape, order_values, labels=None,
         cc = start[:, 1:2] + ar[None]
         q = torch.stack(torch.broadcast_tensors(
             rr[:, :, None].float(), cc[:, None, :].float()), dim=-1).reshape(n, -1, 2)
-        inside = points_in_polygons(d, p, q) & (v > 0)[:, None]
+        # the offsets in the polygons' own frame, about centres at 0
+        q = (q - p[:, None, :]) * inv
+        inside = points_in_polygons(d, torch.zeros_like(p), q) & (v > 0)[:, None]
         in_img = (((rr >= 0) & (rr < H))[:, :, None]
                   & ((cc >= 0) & (cc < W))[:, None, :]).reshape(n, -1)
         inside = inside & in_img

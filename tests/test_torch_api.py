@@ -12,10 +12,12 @@ import torch
 
 import stardist_tpu.geometry as jgeom
 import stardist_tpu.nms as jnms
+import stardist_tpu.utils as jutils
 from stardist_tpu.models import StarDist2D as StarDist2DJax
 from stardist_tpu.models import StarDist3D as StarDist3DJax
 from stardist_torch import geometry as tgeom
 from stardist_torch import nms as tnms
+from stardist_torch import utils as tutils
 from stardist_torch.models import StarDist2D, StarDist3D
 from tests.utils import synthetic_nuclei_2d
 
@@ -44,6 +46,11 @@ PAIRS = {
                                           jnms.non_maximum_suppression_3d_sparse),
     "non_maximum_suppression_3d_inds": (tnms.non_maximum_suppression_3d_inds,
                                         jnms.non_maximum_suppression_3d_inds),
+    "non_maximum_suppression": (tnms.non_maximum_suppression, jnms.non_maximum_suppression),
+    "polygons_to_label_coord": (tgeom.polygons_to_label_coord, jgeom.polygons_to_label_coord),
+    "StarDist2D.optimize_thresholds": (StarDist2D.optimize_thresholds,
+                                       StarDist2DJax.optimize_thresholds),
+    "optimize_threshold": (tutils.optimize_threshold, jutils.optimize_threshold),
 }
 
 
@@ -121,34 +128,92 @@ def test_speed_and_printing_parameters_change_nothing():
 
 
 UNPORTED = {
-    "predict_instances(sparse=False)": ("predict_instances", dict(sparse=False)),
-    "predict_instances(scale)": ("predict_instances", dict(scale=2)),
-    "predict_instances(predict_kwargs)": ("predict_instances",
-                                          dict(predict_kwargs={"max_candidates": 10})),
-    "predict_instances(nms_kwargs)": ("predict_instances", dict(nms_kwargs={"use_bbox": False})),
     "predict_instances(overlap_label)": ("predict_instances", dict(overlap_label=-1)),
-    "predict_instances(return_predict)": ("predict_instances", dict(return_predict=True)),
-    "predict_sparse(max_candidates)": ("predict_sparse", dict(max_candidates=10)),
     "predict_sparse(device_dist)": ("predict_sparse", dict(device_dist=True)),
-    "polygons_to_label(thr)": ("polygons_to_label", dict(thr=0.6)),
-    "polygons_to_label(scale_dist)": ("polygons_to_label", dict(scale_dist=(2, 1))),
-    "dist_to_coord(scale_dist)": ("dist_to_coord", dict(scale_dist=(1, 0.5))),
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNPORTED))
 def test_unported_parameter_raises(tm, img, case):
     fn, kw = UNPORTED[case]
-    d, p, prob = _polygons()
     call = {
         "predict_instances": lambda: tm.predict_instances(img, **kw),
         "predict_sparse": lambda: tm.predict_sparse(img, **kw),
-        "polygons_to_label": lambda: tgeom.polygons_to_label(d, p, (64, 64), prob=prob,
-                                                            device="cpu", **kw),
-        "dist_to_coord": lambda: tgeom.dist_to_coord(d, p, **kw),
     }[fn]
     with pytest.raises(NotImplementedError):
         call()
+
+
+@pytest.fixture(scope="module")
+def jm():
+    return StarDist2DJax(None, "2D_demo", "models/examples")
+
+
+PORTED = {
+    "predict_instances(sparse=False)": ("predict_instances", dict(sparse=False)),
+    "predict_instances(scale)": ("predict_instances", dict(scale=2)),
+    "predict_instances(predict_kwargs)": ("predict_instances",
+                                          dict(predict_kwargs={"max_candidates": 10})),
+    "predict_instances(nms_kwargs)": ("predict_instances", dict(nms_kwargs={"use_bbox": False})),
+    "predict_instances(return_predict)": ("predict_instances", dict(return_predict=True)),
+    "predict_sparse(max_candidates)": ("predict_sparse", dict(max_candidates=10)),
+    "polygons_to_label(thr)": ("polygons_to_label", dict(thr=0.6)),
+    "polygons_to_label(scale_dist)": ("polygons_to_label", dict(scale_dist=(2, 1))),
+    "dist_to_coord(scale_dist)": ("dist_to_coord", dict(scale_dist=(1, 0.5))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PORTED))
+def test_ported_parameter_matches_reference(tm, jm, img, case):
+    """The parameters that raised before they were ported, each against
+    stardist_tpu's same call: the geometry exactly; the pipeline's labels
+    within the tolerance of test_torch_predict.py (survivors within one,
+    matching accuracy >= 0.98: the f32 convs differ in their last bits);
+    max_candidates with the reference's warning and the same top-K."""
+    import warnings
+    from stardist_torch.matching import matching
+    fn, kw = PORTED[case]
+    d, p, prob = _polygons()
+    if fn == "dist_to_coord":
+        got, want = tgeom.dist_to_coord(d, p, **kw), jgeom.dist_to_coord(d, p, **kw)
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+        assert not np.array_equal(got, tgeom.dist_to_coord(d, p))
+        return
+    if fn == "polygons_to_label":
+        got = tgeom.polygons_to_label(d, p, (64, 64), prob=prob, device="cpu", **kw)
+        want = jgeom.polygons_to_label(d, p, (64, 64), prob=prob, **kw)
+        assert np.array_equal(got, want) and got.max() > 10
+        assert not np.array_equal(got, tgeom.polygons_to_label(d, p, (64, 64), prob=prob,
+                                                                device="cpu"))
+        return
+    with warnings.catch_warnings():
+        warnings.simplefilter("error" if "max_candidates" not in str(kw) else "ignore")
+        warnings.filterwarnings("ignore", "Setting sparse to False")
+        if fn == "predict_sparse":
+            with pytest.warns(UserWarning, match="exceeds max_candidates"):
+                got = tm.predict_sparse(img, **kw)
+            with pytest.warns(UserWarning, match="exceeds max_candidates"):
+                want = [np.asarray(a) for a in jm.predict_sparse(img, **kw)]
+            assert len(got[0]) == len(want[0]) == 10
+            np.testing.assert_array_equal(got[2], want[2])
+            np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-5)
+            return
+        got, want = tm.predict_instances(img, **kw), jm.predict_instances(img, **kw)
+    if kw.get("return_predict"):
+        (got, (prob_d, dist_d)), (want, dense_ref) = got, want
+        assert len(dense_ref) == 2
+        for a, r in zip((prob_d, dist_d), dense_ref):
+            r = np.asarray(r)
+            assert isinstance(a, np.ndarray) and a.shape == r.shape and a.dtype == r.dtype
+            np.testing.assert_allclose(a, r, rtol=1e-4, atol=1e-4)
+    (lab, det), (lab_ref, det_ref) = got, want
+    assert lab.shape == lab_ref.shape == img.shape and lab.dtype == np.int32
+    assert abs(len(det["prob"]) - len(det_ref["prob"])) <= 1
+    assert matching(lab_ref, lab, thresh=0.5).accuracy >= 0.98
+    if "predict_kwargs" in kw:
+        assert len(det["prob"]) <= 10
+    else:
+        assert lab.max() > 3
 
 
 def test_predict_sparse_returns_numpy_like_the_reference(tm):

@@ -351,6 +351,51 @@ def test_raster_kernel_matches_plain_with_both_packings(cuda_device, field, R):
             assert torch.equal(got.to(torch.int32), ref)
 
 
+@pytest.mark.parametrize("scale_dist", [(0.5, 0.5), (1.0, 0.5), (2.0, 1.0), (0.7, 1.7)])
+@pytest.mark.parametrize("field", ["random", "adversarial"])
+def test_scaled_raster_kernel_matches_plain(cuda_device, field, scale_dist):
+    """Polygons stretched by scale_dist about non-integer centres
+    (chip_smoke.scaled_field): the kernel against the plain twin, both
+    packings; unscaled, the same call gives the unscaled twin's labels."""
+    from chip_smoke import adversarial_polygons, polygon_field, scaled_field
+    shape = (300, 411)
+    if field == "random":
+        d, p, o, lab = polygon_field(2000, 411, seed=5, n_rays=32)
+    else:
+        d, p, o, lab = adversarial_polygons(shape, 32, seed=5, big=40.0)
+    p = scaled_field(p, scale_dist, seed=6)
+    d, p, o, lab = (torch.from_numpy(np.asarray(a)).to(cuda_device) for a in (d, p, o, lab))
+    ref = trt.rasterize_polygons_tiles_plain(d, p, shape, o, lab, scale_dist=scale_dist)
+    assert (ref > 0).sum().item() > 500
+    for value_bound in (len(d), None):
+        got = trt.rasterize_polygons_tiles_cuda(d, p, shape, o, lab, scale_dist=scale_dist,
+                                                value_bound=value_bound)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+    assert torch.equal(trt.rasterize_polygons_tiles_cuda(d, p, shape, o, lab),
+                       trt.rasterize_polygons_tiles_plain(d, p, shape, o, lab))
+
+
+def test_dense_path_and_threshold_search_on_the_card(cuda_device):
+    """sparse=False equals sparse=True on the card; the threshold search on
+    the card's dense prediction returns what the CPU port returns on the
+    same maps; scale=0.5 draws through the raster kernel."""
+    from chip_smoke import synthetic_nuclei
+    from stardist_torch.utils import optimize_threshold
+    m = StarDist2D(None, "2D_demo", "models/examples", device=cuda_device)
+    cpu = StarDist2D(None, "2D_demo", "models/examples", device="cpu")
+    img, lbl = synthetic_nuclei((256, 256), seed=3)
+    lab_s, _ = m.predict_instances(img)
+    lab_d, _ = m.predict_instances(img, sparse=False)
+    assert np.array_equal(lab_s, lab_d) and lab_s.max() > 5
+    n0 = trt.KERNEL.launches
+    lab_sc, _ = m.predict_instances(img, scale=0.5)
+    assert trt.KERNEL.launches == n0 + 1 and lab_sc.shape == img.shape
+    yhat = [m.predict(img)]
+    assert (optimize_threshold([lbl], yhat, m, 0.4, verbose=0)
+            == optimize_threshold([lbl], yhat, cpu, 0.4, verbose=0))
+
+
 def test_raster_kernel_makes_no_host_sync(cuda_device):
     dist, points, order, labels = (t.to(cuda_device) for t in _polygons(400, 32, (300, 411), 4))
     trt.rasterize_polygons_tiles_cuda(dist, points, (300, 411), order, labels)   # builds

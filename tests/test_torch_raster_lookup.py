@@ -11,7 +11,10 @@ predicate on the window k0 - 1, k0, k0 + 1 with the raster's own wedge
 table (whose last row ends at sin(2 pi) != 0), the matching wedge's edge
 test, and the two guards that take the full walk: |u| outside [2^-60,
 2^64), and a window without exactly one match; then the 32- or 64-bit
-packing and a max per pixel."""
+packing and a max per pixel. With a ``scale_dist`` the offsets u are (q -
+p) * (1 / s) per axis, the boxes' half sides reach * (1 + 2^-6) / (1 / s)
++ 1 and the window 2 ceil(max dist * max(s)) + 4 (f64), as in the
+kernel."""
 import functools
 
 import numpy as np
@@ -20,7 +23,8 @@ import torch
 
 import chip_smoke
 from stardist_torch.ops.raster_tiles import (PACK32_MAX, _inside_wedges, _setup, _tables,
-                                             rasterize_polygons_tiles_plain, tile_window)
+                                             inv_scale, rasterize_polygons_tiles_plain,
+                                             tile_window)
 from test_torch_pair_lookup import theta_estimate
 
 torch.set_num_threads(2)
@@ -33,9 +37,9 @@ RAYS_PSI_ABOVE = [25, 100]     # psi above ray 0: the seam's pixels match two we
 SHAPE = (40, 56)
 
 
-def kernel_window(dist, shape):
-    """The kernel's window from the largest dist (f32 ceil, capped)."""
-    cd = torch.ceil(dist.float().max())
+def kernel_window(dist, shape, scale_dist=(1, 1)):
+    """The kernel's window from the largest dist (ceil in f64, capped)."""
+    cd = np.ceil(np.float64(dist.float().max().item()) * np.float64(max(scale_dist)))
     side = max(shape)
     return 2 * int(cd) + 4 if bool(cd < side) else 2 * side + 4
 
@@ -49,7 +53,7 @@ def polygon_edges(dist):
     return v0r, v0c, er, ec, ec * v0r - er * v0c
 
 
-def boxes(dist, points, shape, window):
+def boxes(dist, points, shape, window, scale_dist=(1, 1)):
     """The kernel's pixel range per polygon: (origin (N, 2), well-formed
     (N,), [lo, hi) of rows and of columns (N, 2) each): the window clipped
     to the image and, where the polygon is well-formed, to its box."""
@@ -57,13 +61,14 @@ def boxes(dist, points, shape, window):
     reach = dist.abs().amax(1)
     ok = ((cc.abs() >= CC_MIN)
           & (cc.abs() >= (BOX_Q * reach)[:, None] * torch.sqrt(er * er + ec * ec))).all(1)
-    half = reach * BOX_GROW + 1
+    inv = torch.tensor(inv_scale(scale_dist), dtype=torch.float32)
+    half = (reach * BOX_GROW)[:, None] / inv + 1               # (N, 2)
     origin = torch.round(points).to(torch.int64) - window // 2
     size = torch.tensor(shape)
     lo = origin.clamp_min(0)
     hi = torch.minimum(origin + window, size)
-    a = torch.minimum(torch.maximum(torch.ceil(points - half[:, None]), lo.float()), hi.float())
-    b = torch.maximum(torch.minimum(torch.floor(points + half[:, None]) + 1, hi.float()), a)
+    a = torch.minimum(torch.maximum(torch.ceil(points - half), lo.float()), hi.float())
+    b = torch.maximum(torch.minimum(torch.floor(points + half) + 1, hi.float()), a)
     lo = torch.where(ok[:, None], a.long(), lo)
     hi = torch.where(ok[:, None], b.long(), hi)
     return origin, ok, lo, hi
@@ -106,13 +111,15 @@ def inside_lookup(ur, uc, edges, R, shift=0):
     return inside, guard1, guard2
 
 
-def emulate(dist, points, shape, order, labels=None, shift=0, pack32=False):
+def emulate(dist, points, shape, order, labels=None, shift=0, pack32=False,
+            scale_dist=(1, 1)):
     """The kernel's labels (int32 (H, W)) and what its guards saw."""
     H, W = shape
     dist, points = dist.float(), points.float()
     R = dist.shape[1]
-    window = kernel_window(dist, shape)
-    origin, ok, lo, hi = boxes(dist, points, shape, window)
+    window = kernel_window(dist, shape, scale_dist)
+    origin, ok, lo, hi = boxes(dist, points, shape, window, scale_dist)
+    inv_r, inv_c = torch.tensor(inv_scale(scale_dist), dtype=torch.float32)
     edges = polygon_edges(dist)
     low = order if labels is None else labels.long() + 1
     packed = (order.long() << (16 if pack32 else 32)) | low
@@ -128,8 +135,8 @@ def emulate(dist, points, shape, order, labels=None, shift=0, pack32=False):
         use = (((rr >= lo[sl, 0:1]) & (rr < hi[sl, 0:1]))[:, :, None]
                & ((cc >= lo[sl, 1:2]) & (cc < hi[sl, 1:2]))[:, None, :]).reshape(n, -1)
         use &= (order[sl] > 0)[:, None]
-        ur = (rr.float()[:, :, None] - points[sl, 0, None, None]).expand(-1, -1, window)
-        uc = (cc.float()[:, None, :] - points[sl, 1, None, None]).expand(-1, window, -1)
+        ur = ((rr.float()[:, :, None] - points[sl, 0, None, None]) * inv_r).expand(-1, -1, window)
+        uc = ((cc.float()[:, None, :] - points[sl, 1, None, None]) * inv_c).expand(-1, window, -1)
         inside, g1, g2 = inside_lookup(ur.reshape(n, -1), uc.reshape(n, -1),
                                        [t[sl] for t in edges], R, shift)
         stats["guard1"] += int((g1 & use).sum())
@@ -267,3 +274,73 @@ def test_packings_order_alike():
     a, b = (order << 16) | low, (order << 32) | low
     assert torch.equal(torch.argsort(a, stable=True), torch.argsort(b, stable=True))
     assert int(a.max()) < 2 ** 32
+
+
+SCALES = [(0.5, 0.5), (1.0, 0.5), (2.0, 1.0), (0.7, 1.7)]   # the last: 1 / s not exact
+
+
+def _scaled_field(kind, R, scale_dist, seed):
+    """A field for a scaled raster, with the centres of chip_smoke's
+    scaled fields (``scaled_field``: times ``scale_dist``, one in two off
+    the grid by a fraction of a pixel)."""
+    d, p, o, lab = _field(kind, R, seed)
+    return d, torch.from_numpy(chip_smoke.scaled_field(p.numpy(), scale_dist, seed)), o, lab
+
+
+@pytest.mark.parametrize("scale_dist", SCALES)
+@pytest.mark.parametrize("R", [8, 32])
+@pytest.mark.parametrize("kind", ["random", "adversarial"])
+def test_scaled_lookup_equals_plain(kind, R, scale_dist):
+    """Polygons stretched by ``scale_dist`` about non-integer centres: the
+    kernel's scaled offsets, boxes and window give the plain twin's labels
+    bit for bit, with both packings."""
+    d, p, o, lab = _scaled_field(kind, R, scale_dist, seed=R + 7)
+    want = rasterize_polygons_tiles_plain(d, p, SHAPE, o, lab, scale_dist=scale_dist)
+    assert (want > 0).sum() > 200
+    for pack32 in (False, True):
+        got, stats = emulate(d, p, SHAPE, o, lab, pack32=pack32, scale_dist=scale_dist)
+        assert torch.equal(got, want), int((got != want).sum())
+    if kind == "random":
+        assert stats["full"] == 0 and stats["guard1"] == 0
+    else:
+        assert stats["full"] >= 4 and stats["guard2"] > 0
+    unscaled = rasterize_polygons_tiles_plain(d, p, SHAPE, o, lab)
+    assert not torch.equal(unscaled, want)
+
+
+@pytest.mark.parametrize("scale_dist", SCALES + [(1, 1), (0.3, 3.0)])
+@pytest.mark.parametrize("R", [8, 32])
+def test_scaled_polygons_draw_inside_their_boxes(R, scale_dist):
+    """Every pixel a well-formed polygon draws when scaled (the plain
+    twin's offsets and inside test) lies in its scaled box."""
+    d, p, o, lab = _scaled_field("random", R, scale_dist, seed=R + 11)
+    feats, pts, origin, _, window = _setup(d, p, SHAPE, o, lab, scale_dist)
+    assert window == kernel_window(d, SHAPE, scale_dist) == tile_window(d.max(), SHAPE,
+                                                                        scale_dist)
+    _, ok, lo, hi = boxes(d, pts, SHAPE, window, scale_dist)
+    assert ok.all()
+    inv = torch.tensor(inv_scale(scale_dist), dtype=torch.float32)
+    ar = torch.arange(window)
+    rows = (origin[:, 0:1] + ar)[:, :, None].expand(-1, -1, window).reshape(len(d), -1)
+    cols = (origin[:, 1:2] + ar)[:, None, :].expand(-1, window, -1).reshape(len(d), -1)
+    ur, uc = (rows.float() - pts[:, 0:1]) * inv[0], (cols.float() - pts[:, 1:2]) * inv[1]
+    inside = (_inside_wedges(feats, ur, uc) & (rows >= 0) & (rows < SHAPE[0]) & (cols >= 0)
+              & (cols < SHAPE[1]))
+    in_box = ((rows >= lo[:, 0:1]) & (rows < hi[:, 0:1])
+              & (cols >= lo[:, 1:2]) & (cols < hi[:, 1:2]))
+    assert inside.sum() > 1000
+    assert not (inside & ~in_box).any()
+    # the box is not much larger than the scaled polygon's reach
+    reach = d.amax(1)
+    assert ((hi - lo).float() <= 2 * reach[:, None] * torch.tensor(scale_dist) + 4).all()
+
+
+def test_scaled_kernel_window_is_tile_window():
+    """Products dmax * max(s) just above an integer in f64 that f32 would
+    round down to it: the window's ceil is taken in f64."""
+    for scale_dist in SCALES + [(0.3, 3.0), (1 / 3, 1.0)]:
+        for dmax in (0.0, 0.25, 3.0, 7.5, 9.333333, 14.0, 28.001, 1e4,
+                     1.6666667461395264, 7.058823585510254):
+            d = torch.tensor([[dmax, 0.0, 0.0]], dtype=torch.float32)
+            assert (kernel_window(d, SHAPE, scale_dist)
+                    == tile_window(d.max(), SHAPE, scale_dist)), (scale_dist, dmax)
