@@ -1,6 +1,6 @@
 """Smoke run of stardist_torch on one CUDA card.
 
-    python3 chip_smoke.py [--phases bcdefghijklm]
+    python3 chip_smoke.py [--phases bcdefghijklmno]
 
 Phases (each prints one line; any failed check exits non-zero):
   (a) the card's name and power limit; build the four CUDA kernels from
@@ -96,7 +96,30 @@ Phases (each prints one line; any failed check exits non-zero):
       the CPU port's; then predict_instances on the 2048^2 field with
       sparse=False (labels exactly sparse=True's) and scale=0.5, their
       AP@0.5 and stage times, and the scaled call on a 512^2 crop against
-      the CPU (matching accuracy >= 0.99, as in (e)).
+      the CPU (matching accuracy >= 0.99, as in (e));
+  (n) 3D training with the configuration of upstream StarDist's
+      examples/3D/2_training.ipynb: Rays_GoldenSpiral(96) and the grid from
+      the anisotropy of the training labels' extents (calculate_extents),
+      48x96x96 patches, batch 2, the ResNet backbone, on eight seeded
+      64x192x192 synthetic nuclei volumes (two for validation): on one
+      fixed raw batch with the same weights and TF32 off, the card's fused
+      targets exactly the CPU port's, its loss and metrics (METRIC_RTOL) and
+      gradients (GRAD_TOL), and the targets' split (EDT, march) by CUDA
+      events; StarDist3D.train 2 epochs x 10 steps (TF32 off): finite
+      losses, the last 5 steps' mean below the first 5's, steps/s, the step
+      split at model.step_marks, peak memory, the producer's host work per
+      batch, the device busy share of 3 steps (torch.profiler);
+      weights_best.h5 reloaded on the card (the port's reader) and on the
+      CPU, forwards within FWD_TOL; then the same configuration with the
+      U-Net for 1 epoch x 5 steps, and predict_instances with its
+      weights_best.h5 through the conv3d kernel (one launch per conv);
+  (o) the rest of the 3D surface, 3D_demo on the 64x256x256 field of (h):
+      predict_instances_device with fetch=True equal to predict_instances,
+      fetch=False's CUDA tensors equal too, sparse=False equal to
+      sparse=True, scale=(1, 0.5, 0.5) and overlap_label=-1; each call's
+      wall and stages and the conv3d launches; on a 32x64x64 crop the
+      CPU's candidates through the card's and the CPU's NMS and raster with
+      scale and overlap_label: labels exactly equal.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. With --phases, only (a) and the named phases
 run (e.g. --phases k to time the tiled call alone), and neither line is
@@ -141,7 +164,11 @@ METRIC_RTOL = 1e-4   # (l) loss and metrics, card vs CPU, TF32 off
 GRAD_TOL = 1e-3      # (l) gradients, relative to the parameter's largest |grad| on the CPU
 THRESH_FIELDS = (3, 1024)        # (m): validation fields of optimize_thresholds (count, side)
 THRESH_CMP = 512                 # (m): card vs CPU search on one field's dense prediction
-ALL_PHASES = "bcdefghijklm"      # (a) runs always
+TRAIN3D_FIELDS = (8, (64, 192, 192))  # (n): synthetic nuclei volumes (count, shape)
+TRAIN3D_CONFIG = dict(n_rays=96, train_patch_size=(48, 96, 96), train_batch_size=2)  # (n)
+TRAIN3D_EPOCHS, TRAIN3D_STEPS = 2, 10  # (n): the ResNet; the U-Net trains 1 x 5
+SURFACE3D_CMP = (32, 64, 64)     # (o): card vs CPU crop
+ALL_PHASES = "bcdefghijklmno"    # (a) runs always
 # one H100 SXM (NVIDIA's data sheet, dense, at the 700 W limit): bf16 tensor
 # cores, f32 outside them, HBM3
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -1472,6 +1499,243 @@ def phase_m(dev, kernels, matching, StarDist2D, rt):
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+def train3d_config(Y, backbone, Config3D):
+    """upstream StarDist's examples/3D/2_training.ipynb: the anisotropy from
+    the median extents of the training labels, the grid 1 along an axis
+    more than 1.5 times coarser and 2 along the others, 96 golden-spiral
+    rays with that anisotropy."""
+    from stardist_torch.rays3d import Rays_GoldenSpiral
+    from stardist_torch.utils import calculate_extents
+    extents = calculate_extents(Y)
+    anisotropy = tuple(float(a) for a in np.max(extents) / extents)
+    grid = tuple(1 if a > 1.5 else 2 for a in anisotropy)
+    kw = dict(TRAIN3D_CONFIG)
+    rays = Rays_GoldenSpiral(kw.pop("n_rays"), anisotropy=anisotropy)
+    return Config3D(rays=rays, grid=grid, anisotropy=anisotropy, backbone=backbone,
+                    train_tensorboard=False, **kw)
+
+
+def train3d_vs_cpu(dev, StarDist3D, cfg, raw):
+    """One fixed raw batch, the same seeded weights, TF32 off: the card's
+    targets, loss, metrics and gradients against the CPU port's."""
+    from stardist_torch.ops.edt import edt_prob_batch
+    from stardist_torch.ops.stardist3d import star_dist3d
+    out = []
+    for device in (dev, "cpu"):
+        m = StarDist3D(cfg, name="n_cmp", basedir=None, device=device)
+        m.prepare_for_training()
+        t0 = time.perf_counter()
+        t = m._targets_fn(m._put_batch(raw))
+        if device == "cpu":
+            t_cpu = time.perf_counter() - t0
+        loss, metrics = m._loss_and_metrics(t)
+        loss.backward()
+        out.append((t, {k: float(v) for k, v in metrics.items()},
+                    {k: p.grad.cpu() for k, p in m.net.named_parameters()}))
+    (tg, mg, gg), (tc, mc, gc) = out
+    for k in ("x", "prob", "dist"):
+        check(torch.equal(tg[k].cpu(), tc[k]), f"(n) {k} targets: card != CPU")
+    e_met = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-30) for k in mc)
+    check(e_met <= METRIC_RTOL, f"(n) loss / metrics: card vs CPU rel {e_met}: {mg} {mc}")
+    e_grad = max(((gg[k] - gc[k]).abs().max() / gc[k].abs().max().clamp_min(1e-30)).item()
+                 for k in gc)
+    check(e_grad <= GRAD_TOL, f"(n) gradients: card vs CPU rel {e_grad}")
+    gz, gy, gx = cfg.grid
+    y = torch.from_numpy(raw["y"]).to(dev).clamp_min(0)
+    labels = torch.from_numpy(raw["labels"]).to(dev)
+    spacing = tuple(float(a) for a in cfg.anisotropy)
+    rays = m.rays
+    ms_edt = cuda_ms(lambda: edt_prob_batch(y, labels, spacing))
+    ms_march = cuda_ms(lambda: star_dist3d(y, rays, cfg.grid, n_steps=raw["steps"]))
+    n_lab = int((raw["labels"] > 0).sum())
+    return (f"targets exactly equal ({n_lab} labels, march bound {raw['steps']} steps; the "
+            f"CPU's targets {t_cpu:.1f} s), loss {mg['loss']:.6f} vs {mc['loss']:.6f}, metrics "
+            f"max rel diff {e_met:.1e}, gradients max rel diff {e_grad:.1e} over {len(gc)} "
+            f"parameters; targets split on this batch: EDT {ms_edt:.3f} ms (full resolution, "
+            f"{labels.shape[0]} x {labels.shape[1]} labels), march {ms_march:.3f} ms")
+
+
+def train3d_run(dev, StarDist3D, cfg, X, Y, workdir, name, epochs, steps):
+    """StarDist3D.train on the card (TF32 off): checks and numbers of one run."""
+    m = StarDist3D(cfg, name=name, basedir=workdir, device=dev)
+    marks = StageMarks()
+    m.step_marks = marks
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    h = m.train(X[2:], Y[2:], validation_data=(X[:2], Y[:2]), seed=31, epochs=epochs,
+                steps_per_epoch=steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    m.step_marks = None
+    losses = np.asarray(h.steps["loss"])
+    check(len(losses) == epochs * steps and np.isfinite(losses).all()
+          and np.isfinite(h.history["val_loss"]).all(), f"(n) {name}: losses not finite: {losses}")
+    first, last = losses[:5].mean(), losses[-5:].mean()
+    split, step_ms = marks.split()
+    text = (f"{len(losses)} steps, call {wall:.1f} s ({len(losses) / wall:.2f} steps/s with "
+            f"validation, checkpoints and start-up), step {step_ms:.1f} ms median "
+            f"({1e3 / step_ms:.2f} steps/s); loss first 5 {first:.4f}, last 5 {last:.4f}, val_loss "
+            f"{[round(v, 4) for v in h.history['val_loss']]}; split (median ms): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in split.items()) + f"; peak memory {peak:.2f} GiB")
+    return m, text, (first, last)
+
+
+def phase_n(dev, conv, StarDist3D, Config3D):
+    """3D training on the card: the upstream training notebook's configuration."""
+    import shutil
+    import tempfile
+    from stardist_torch.models.model3d import StarDistData3D
+    from stardist_torch.rays3d import rays_from_json
+    n, shape = TRAIN3D_FIELDS
+    fields = [synthetic_nuclei_3d(shape, seed=1100 + i) for i in range(n)]
+    X, Y = [f[0] for f in fields], [f[1] for f in fields]
+    cfg = train3d_config(Y[2:], "resnet", Config3D)
+    os.makedirs("build", exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_train3d_", dir="build")
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    try:
+        set_tf32(False)
+        data = StarDistData3D(X[2:], Y[2:], rays=rays_from_json(cfg.rays_json),
+                              batch_size=cfg.train_batch_size,
+                              length=3, patch_size=cfg.train_patch_size, grid=cfg.grid,
+                              anisotropy=cfg.anisotropy,
+                              foreground_prob=cfg.train_foreground_only, device=dev)
+        np.random.seed(13)
+        t0 = time.perf_counter()
+        raw = data.raw_item(0)
+        t_raw = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        data.raw_item(1)
+        t_raw2 = (time.perf_counter() - t0) * 1e3
+        print(f"(n) config (examples/3D/2_training.ipynb): anisotropy "
+              f"{tuple(round(a, 3) for a in cfg.anisotropy)}, grid {cfg.grid}, {cfg.n_rays} rays, "
+              f"patches {cfg.train_patch_size} x {cfg.train_batch_size}, {n} volumes of "
+              f"{'x'.join(map(str, shape))} ({sum(int(y.max()) for y in Y)} nuclei); the "
+              f"producer's host work for a batch {t_raw:.1f} ms (first, with the sampling "
+              f"caches) / {t_raw2:.1f} ms (second)", flush=True)
+        print(f"(n) ResNet training step at {cfg.train_patch_size} x {cfg.train_batch_size}, card "
+              f"vs CPU (TF32 off): {train3d_vs_cpu(dev, StarDist3D, cfg, raw)}", flush=True)
+        m, text, (first, last) = train3d_run(dev, StarDist3D, cfg, X, Y, workdir, "n_resnet",
+                                             TRAIN3D_EPOCHS, TRAIN3D_STEPS)
+        check(last < first, f"(n) ResNet training loss did not fall: first 5 {first}, last 5 {last}")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        batches = [{k: torch.from_numpy(v).pin_memory() if isinstance(v, np.ndarray) else v
+                    for k, v in m.data_train.raw_item(i).items()} for i in range(3)]
+        m._train_step(m._put_batch(batches[0]), gen)
+        busy = device_busy(lambda: [m._train_step(m._put_batch(b), gen) for b in batches])
+        print(f"(n) StarDist3D.train (ResNet) {TRAIN3D_EPOCHS} x {TRAIN3D_STEPS} steps: {text}; "
+              f"3 steps profiled: {busy}", flush=True)
+
+        served = StarDist3D(None, name="n_resnet", basedir=workdir, device=dev)
+        on_cpu = StarDist3D(None, name="n_resnet", basedir=workdir, device="cpu")
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(served.net.state_dict().values(),
+                                                           on_cpu.net.state_dict().values())),
+              "(n) weights_best.h5 reads differently on the card and on the CPU")
+        xv = X[0][:32, :64, :64]
+        p_g, d_g = served.net(torch.from_numpy(xv[..., None]).to(dev))
+        p_c, d_c = on_cpu.net(torch.from_numpy(xv[..., None]))
+        e_c = max((p_g.cpu() - p_c).abs().max().item(),
+                  ((d_g.cpu() - d_c).abs().max() / d_c.abs().max().clamp_min(1.0)).item())
+        check(e_c < FWD_TOL, f"(n) ResNet weights_best.h5: card (bf16) vs CPU (f32) forward {e_c}")
+
+        cfg_u = train3d_config(Y[2:], "unet", Config3D)
+        mu, text_u, _ = train3d_run(dev, StarDist3D, cfg_u, X, Y, workdir, "n_unet", 1, 5)
+        served_u = StarDist3D(None, name="n_unet", basedir=workdir, device=dev)
+        img = X[1]
+        prob_map, _ = served_u.predict(img)
+        thresh = float(min(0.5, np.quantile(prob_map, 0.999)))
+        served_u.predict_instances(img[:32, :64, :64], prob_thresh=thresh)     # warm-up
+        torch.cuda.synchronize()
+        conv.KERNEL3D.launches = 0
+        labels, det = served_u.predict_instances(img, prob_thresh=thresh)
+        torch.cuda.synchronize()
+        launches = conv.KERNEL3D.launches
+        n_conv = len(served_u.net.conv_blocks())
+        check(launches == n_conv, f"(n) conv3d launches {launches} != {n_conv} convs x 1 call")
+        check(labels.shape == img.shape, "(n) served U-Net: label volume shape")
+        print(f"(n) ResNet weights_best.h5 reloaded: card (bf16 F.conv3d) vs CPU (f32) forward "
+              f"{e_c:.2e}; StarDist3D.train (U-Net) 1 x 5 steps: {text_u}; its weights_best.h5 "
+              f"served by predict_instances on {'x'.join(map(str, img.shape))} at prob_thresh "
+              f"{thresh:.3f}: {len(det['prob'])} objects, stages "
+              + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in det["timings_s"].items())
+              + f" ms, conv3d launches {launches} ({n_conv} convs)", flush=True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def phase_o(dev, conv, matching, StarDist3D):
+    """The 3D surface on the card: the device path, sparse=False, scale,
+    overlap_label."""
+    model = StarDist3D(None, "3D_demo", "models/examples", device=dev)
+    img, lbl = synthetic_nuclei_3d(E2E3D_SHAPE, seed=3)
+    model.predict_instances(img)                       # warm-up
+    torch.cuda.synchronize()
+
+    def call(name, fn):
+        conv.KERNEL3D.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = conv.KERNEL3D.launches
+        check(launches == len(model.net.conv_blocks()),
+              f"(o) {name}: conv3d launches {launches} != {len(model.net.conv_blocks())}")
+        det = out[1]
+        text = f"{name} {wall:.1f} ms"
+        if "timings_s" in det:
+            text += (" [" + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in det["timings_s"].items())
+                     + " ms]")
+        return out, f"{text}, {len(det['prob'])} objects, conv3d launches {launches}"
+
+    (ref, det_ref), t_ref = call("predict_instances", lambda: model.predict_instances(img))
+    (lab_d, det_d), t_d = call("predict_instances_device fetch=True",
+                               lambda: model.predict_instances_device(img))
+    check(np.array_equal(lab_d, ref), "(o) device path labels != predict_instances")
+    for k in ("points", "prob", "dist"):
+        check(np.array_equal(det_d[k], det_ref[k]), f"(o) device path {k} != predict_instances")
+    (lab_t, det_t), t_t = call("fetch=False",
+                               lambda: model.predict_instances_device(img, fetch=False))
+    check(lab_t.is_cuda and lab_t.dtype == torch.int32
+          and all(det_t[k].is_cuda for k in ("points", "prob", "dist")),
+          "(o) fetch=False must return the labels and survivors on the card")
+    check(np.array_equal(lab_t.cpu().numpy(), ref), "(o) fetch=False labels")
+    (lab_s, det_s), t_s = call("sparse=False", lambda: model.predict_instances(img, sparse=False))
+    check(np.array_equal(lab_s, ref), "(o) sparse=False labels != sparse=True labels")
+    (lab_sc, det_sc), t_sc = call("scale=(1, 0.5, 0.5)",
+                                  lambda: model.predict_instances(img, scale=(1, 0.5, 0.5)))
+    check(lab_sc.shape == img.shape and lab_sc.max() > 0, "(o) scaled labels")
+    (lab_o, det_o), t_o = call("overlap_label=-1",
+                               lambda: model.predict_instances(img, overlap_label=-1))
+    n_overlap = int((lab_o == -1).sum())
+    check(n_overlap > 0 and np.array_equal(lab_o != 0, ref > 0),
+          "(o) overlap_label=-1: no overlap, or the objects' union moved")
+    ap = {k: matching(lbl, np.maximum(v, 0), thresh=0.1).accuracy
+          for k, v in (("scale", lab_sc), ("overlap_label", lab_o))}
+
+    from scipy import ndimage as ndi
+    crop = img[tuple(slice(0, s) for s in SURFACE3D_CMP)]
+    cpu = StarDist3D(None, "3D_demo", "models/examples", device="cpu")
+    zoomed = ndi.zoom(crop, (1, 0.5, 0.5), order=1)
+    cand = cpu._predict_sparse(zoomed)
+    check(len(cand[0]) > 0, f"(o) no candidates in the {SURFACE3D_CMP} crop")
+    scale = {"Z": 1, "Y": 0.5, "X": 0.5}
+    kw = dict(scale=scale, render_kw=dict(overlap_label=-1))
+    lab_g, det_g = model._instances_from_prediction(crop.shape, *(c.to(dev) for c in cand), **kw)
+    lab_c, det_c = cpu._instances_from_prediction(crop.shape, *cand, **kw)
+    check(np.array_equal(lab_g, lab_c) and np.array_equal(det_g["points"], det_c["points"]),
+          f"(o) {SURFACE3D_CMP} crop, scale and overlap_label on the CPU's candidates: card != CPU")
+    print(f"(o) 3D surface, 3D_demo on {'x'.join(map(str, E2E3D_SHAPE))}: device path (fetch=True "
+          f"and fetch=False on the card) == predict_instances, sparse=False == sparse=True; "
+          f"scale AP@0.1 {ap['scale']:.4f}, overlap_label=-1 {n_overlap} voxels (AP@0.1 "
+          f"{ap['overlap_label']:.4f}); calls: {t_ref}; {t_d}; {t_t}; {t_s}; {t_sc}; {t_o}; "
+          f"{'x'.join(map(str, SURFACE3D_CMP))} crop with scale (1, 0.5, 0.5) and "
+          f"overlap_label=-1 on the CPU's {len(cand[0])} candidates: card == CPU "
+          f"({len(det_c['prob'])} objects)", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=ALL_PHASES,
@@ -1543,6 +1807,11 @@ def main(argv=None):
         phase_l(dev, kernels, StarDist2D, Config2D)
     if "m" in phases:
         phase_m(dev, kernels, matching, StarDist2D, rt)
+    if "n" in phases:
+        phase_n(dev, conv, StarDist3D, Config3D)
+        torch.cuda.empty_cache()
+    if "o" in phases:
+        phase_o(dev, conv, matching, StarDist3D)
     if phases != set(ALL_PHASES):
         return 0
     launches["conv3d"] = launches3d

@@ -2,19 +2,30 @@
 in PyTorch, with hand-written CUDA kernels for Hopper (sm_90a).
 
 The port of ``stardist_tpu``'s prediction path: ``StarDist2D`` and
-``StarDist3D.predict_instances`` (normalize -> U-Net forward -> candidate
-extraction -> greedy star-polygon / star-polyhedron NMS -> label
-rasterization); and of its 2D training, ``StarDist2D.train`` (targets built
-on the model's device, float32 autograd, Adam; weight files the JAX package
-reads). The 3x3 and 3x3x3 convolutions and the 2D NMS pair-overlap
-estimator run as CUDA kernels on CUDA tensors (``stardist_torch/csrc``) and
-as their plain PyTorch versions on CPU tensors.
+``StarDist3D.predict_instances`` (normalize -> U-Net or, in 3D, ResNet
+forward -> candidate extraction -> greedy star-polygon / star-polyhedron NMS
+-> label rasterization) and ``predict_instances_device``; of its training,
+``StarDist2D.train`` and ``StarDist3D.train`` (targets built on the model's
+device, float32 autograd, Adam; weight files the JAX package reads); and of
+the threshold search. The U-Net's 3x3 and 3x3x3 convolutions, the 2D NMS
+pair-overlap estimator and the 2D label raster run as CUDA kernels on CUDA
+tensors (``stardist_torch/csrc``) and as their plain PyTorch versions on
+CPU tensors.
 
 This package imports torch, numpy and scipy only.
 """
 from .version import __version__
 from .matching import matching, matching_dataset
 from .models import Config2D, Config3D, StarDist2D, StarDist3D
+from .nms import non_maximum_suppression_3d, non_maximum_suppression_3d_sparse
+from .geometry import (dist_to_coord3D, export_to_obj_file3D, polyhedron_to_label,
+                       relabel_image_stardist3D, star_dist3D)
+from .rays3d import (Rays_Base, Rays_Cartesian, Rays_Explicit, Rays_GoldenSpiral, Rays_Octo,
+                     Rays_SubDivide, Rays_Tetra, rays_from_json, reorder_faces)
 
 __all__ = ["__version__", "matching", "matching_dataset", "Config2D", "Config3D",
-           "StarDist2D", "StarDist3D"]
+           "StarDist2D", "StarDist3D", "non_maximum_suppression_3d",
+           "non_maximum_suppression_3d_sparse", "dist_to_coord3D", "export_to_obj_file3D",
+           "polyhedron_to_label", "relabel_image_stardist3D", "star_dist3D", "Rays_Base",
+           "Rays_Cartesian", "Rays_Explicit", "Rays_GoldenSpiral", "Rays_Octo",
+           "Rays_SubDivide", "Rays_Tetra", "rays_from_json", "reorder_faces"]

@@ -628,7 +628,8 @@ class StarDistBase:
     def _tb_log_images(self, tb_writer, val_batch, step, n_images=3):
         """TensorBoard panels of the validation batch: input, true and
         predicted object probability, three evenly spaced rays of the
-        predicted distances (the inference route's forward)."""
+        predicted distances (the inference route's forward); of a volume,
+        its middle z-slice."""
         x = val_batch["x"][:n_images]
         preds = [self.net(xi) for xi in x]
         prob_p = torch.stack([p for p, _ in preds])[..., None]
@@ -639,6 +640,8 @@ class StarDistBase:
                   "prob/pred": prob_p, "dist/pred": dist_p[..., 0:k * min(3, n_rays):k]}
         for name, g in groups.items():
             g = g.float().cpu().numpy()
+            if g.ndim == 5:                                   # (B, Z, Y, X, C): the middle z
+                g = g[:, g.shape[1] // 2]
             for i in range(g.shape[0]):
                 for c in range(g.shape[-1]):
                     img = g[i, ..., c]
@@ -1038,12 +1041,16 @@ class StarDistBase:
         padding leaves the mask before the top-K, the default, or its
         candidates are dropped after it; see :meth:`_predict_sparse`) or to
         :meth:`predict`; ``nms_kwargs`` to the NMS (``b``, ``use_bbox``,
-        ``use_kdtree``, ``verbose``). ``fetch=False`` (2D) leaves the labels
+        ``use_kdtree``, ``verbose``). ``fetch=False`` leaves the labels
         and the survivors as tensors on ``self.device``. ``overlap_label``
-        raises ``NotImplementedError`` when set (the reference's 2D model
-        does the same)."""
+        (3D) marks the voxels that more than one survivor covers; the 2D
+        model raises ``NotImplementedError`` for it, as the reference's 2D
+        model does."""
+        render_kw = dict(fetch=fetch)
         if overlap_label is not None:
-            raise NotImplementedError("predict_instances(overlap_label=...) is not ported yet")
+            if self.config.n_dim == 2:
+                raise NotImplementedError("overlap_label not supported for 2D yet!")
+            render_kw["overlap_label"] = overlap_label
         predict_kwargs = dict(predict_kwargs or {})
         nms_kwargs = dict(nms_kwargs or {})
         if return_predict and sparse:
@@ -1071,7 +1078,7 @@ class StarDistBase:
         res = self._instances_from_prediction(
             shape_inst, prob, dist, points, prob_thresh=prob_thresh, nms_thresh=nms_thresh,
             scale=scale, return_labels=return_labels, timings=timings,
-            render_kw=dict(fetch=fetch), **nms_kwargs)
+            render_kw=render_kw, **nms_kwargs)
         res[1]["timings_s"] = timings
         if return_predict:
             return res, (prob.cpu().numpy(), dist.cpu().numpy())

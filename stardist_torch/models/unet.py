@@ -1,9 +1,9 @@
-"""StarDist 2D and 3D U-Net (counterpart of ``stardist_tpu/models/unet.py::
+"""StarDist 2D and 3D networks (counterpart of ``stardist_tpu/models/unet.py::
 StarDistNet`` and its inference form ``models/unet_chw.py::chw_forward``).
 
-One walker of the topology, in the flax call order — grid pre-pooling
-convs, the csbdeep U-Net backbone (max-pool, nearest upsample, skip concat),
-the feature conv, the 1x1 heads — with two routes:
+The U-Net: one walker of the topology, in the flax call order — grid
+pre-pooling convs, the csbdeep U-Net backbone (max-pool, nearest upsample,
+skip concat), the feature conv, the 1x1 heads — with two routes:
 
 - inference (:meth:`StarDistNet.forward`): one unbatched channels-last
   image, ``(H, W, C)`` or ``(D, H, W, C)``, so that every 3x3 (3x3x3) conv
@@ -15,6 +15,16 @@ the feature conv, the 1x1 heads — with two routes:
   ``(B, *sp, C)`` through ``F.conv2d`` / ``F.conv3d`` with autograd, and
   the reference's dropout; outputs ``prob (B, *sp', 1)`` and ``dist (B,
   *sp', R)``, as the reference's ``net.apply(..., train=True)``.
+
+The ResNet (3D; the reference's ``backbone="resnet"``): a 7^3 and a 3^3 conv
+(no activation), ``resnet_n_blocks`` csbdeep residual blocks whose first
+conv and 1x1 projection shortcut are strided until the grid is reached
+(filters doubling at each stride), the feature conv, the heads. Its convs
+are ``F.conv3d`` on ``(B, C, *sp)`` in both routes (the net's type for
+inference, float32 for training), as the reference runs them through XLA
+and never through its Pallas conv (``supports_chw`` excludes them); a
+strided conv pads as flax's ``padding="SAME"`` does, ``total // 2`` before
+and the rest after, ``total = max((out - 1) * s + k - in, 0)``.
 """
 from __future__ import annotations
 
@@ -74,6 +84,68 @@ class ConvBlock(nn.Module):
         return y
 
 
+def same_pads(sizes, k, stride):
+    """flax's ``padding="SAME"`` per spatial axis: (before, after) with
+    ``total = max((ceil(n / s) - 1) * s + k - n, 0)`` and ``total // 2``
+    before (asymmetric for a stride 2 and an even extent: (0, 1) at k = 3)."""
+    pads = []
+    for n, s in zip(sizes, stride):
+        total = max((-(-n // s) - 1) * s + k - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
+
+
+class Conv(nn.Module):
+    """A k^nd conv with a stride and flax's SAME padding (+ activation), on
+    (B, C, *sp) in the input's type; weight in the flax (k..., C, Cout)
+    layout. The ResNet's convs, in both routes."""
+
+    def __init__(self, c_in, c_out, k, n_dim, stride=1, act="linear"):
+        super().__init__()
+        self.k = int(k)
+        self.stride = (int(stride),) * n_dim if np.isscalar(stride) else tuple(map(int, stride))
+        self.act = str(act).lower()
+        if self.act not in _TRAIN_ACTS:
+            raise NotImplementedError(f"activation {act!r} is not ported")
+        self.weight = nn.Parameter(torch.zeros((self.k,) * n_dim + (c_in, c_out)))
+        self.bias = nn.Parameter(torch.zeros(c_out))
+
+    def forward(self, h):
+        nd = self.weight.dim() - 2
+        pads = same_pads(h.shape[2:], self.k, self.stride)
+        if all(lo == hi for lo, hi in pads):
+            padding = tuple(lo for lo, _ in pads)
+        else:
+            h = F.pad(h, [p for lo_hi in reversed(pads) for p in lo_hi])
+            padding = 0
+        w = self.weight.permute(nd + 1, nd, *range(nd)).to(h.dtype)   # (Cout, C, k, ...)
+        conv = F.conv2d if nd == 2 else F.conv3d
+        return _TRAIN_ACTS[self.act](conv(h, w, self.bias.to(h.dtype), self.stride, padding))
+
+
+class ResNetBlock(nn.Module):
+    """csbdeep's ``resnet_block`` (reference unet.py ``ResNetBlock``):
+    ``n_conv`` convs, the first strided by ``pool``, an activation after
+    each but the last; a strided 1x1 projection shortcut when the block
+    pools or changes the width; the activation after the sum."""
+
+    def __init__(self, c_in, c_out, k, pool, n_conv, n_dim, act):
+        super().__init__()
+        self.act = _TRAIN_ACTS[str(act).lower()]
+        self.convs = nn.ModuleList(
+            [Conv(c_in, c_out, k, n_dim, pool, act)]
+            + [Conv(c_out, c_out, k, n_dim, 1, act if i < n_conv - 2 else "linear")
+               for i in range(n_conv - 1)])
+        self.shortcut = (Conv(c_in, c_out, 1, n_dim, pool)
+                         if any(p > 1 for p in pool) or c_in != c_out else None)
+
+    def forward(self, x):
+        y = x
+        for conv in self.convs:
+            y = conv(y)
+        return self.act((x if self.shortcut is None else self.shortcut(x)) + y)
+
+
 def max_pool(h, pool):
     """Max-pool channels-last (*sp, C) by ``pool`` (one factor per spatial
     dim); each spatial size is a multiple of its factor."""
@@ -94,7 +166,7 @@ def upsample(h, pool):
 
 
 class StarDistNet(nn.Module):
-    """2D or 3D StarDist network with a U-Net backbone.
+    """2D or 3D StarDist network with a U-Net backbone, or 3D with a ResNet.
 
     ``dtype`` is the activation type of the inference route's convs:
     ``torch.bfloat16`` (the CUDA kernel's type and the reference's TPU
@@ -105,18 +177,34 @@ class StarDistNet(nn.Module):
     def __init__(self, config, dtype=torch.float32):
         super().__init__()
         c = config
-        nd = self.n_dim = int(c.n_dim)
-        if c.backbone != "unet" or tuple(c.unet_kernel_size) != (3,) * nd or c.unet_batch_norm:
-            raise NotImplementedError(
-                "only the U-Net backbone with 3x3 (3x3x3) kernels and no batch norm is ported")
+        self.n_dim = int(c.n_dim)
         if c.n_classes is not None:
             raise NotImplementedError("multiclass heads are not ported yet")
+        self.backbone_kind = str(c.backbone).lower()
         self.grid = tuple(int(g) for g in c.grid)
         self.n_rays = int(c.n_rays)
+        self.dtype = dtype
+        if self.backbone_kind == "resnet":
+            ch = self._build_resnet(c)
+        elif self.backbone_kind == "unet":
+            ch = self._build_unet(c)
+        else:
+            raise NotImplementedError(f"backbone {c.backbone!r} is not ported")
+        self.head_prob = nn.Module()
+        self.head_prob.weight = nn.Parameter(torch.zeros(ch, 1))
+        self.head_prob.bias = nn.Parameter(torch.zeros(1))
+        self.head_dist = nn.Module()
+        self.head_dist.weight = nn.Parameter(torch.zeros(ch, self.n_rays))
+        self.head_dist.bias = nn.Parameter(torch.zeros(self.n_rays))
+
+    def _build_unet(self, c):
+        nd = self.n_dim
+        if tuple(c.unet_kernel_size) != (3,) * nd or c.unet_batch_norm:
+            raise NotImplementedError(
+                "only the U-Net backbone with 3x3 (3x3x3) kernels and no batch norm is ported")
         self.n_depth = int(c.unet_n_depth)
         self.n_conv = int(c.unet_n_conv_per_depth)
         self.pool = tuple(int(p) for p in c.unet_pool)
-        self.dtype = dtype
         act, last_act = c.unet_activation, c.unet_last_activation
         base = int(c.unet_n_filter_base)
         drop = float(c.unet_dropout)       # the backbone's convs only, as in flax
@@ -160,34 +248,91 @@ class StarDistNet(nn.Module):
             ch = self.n_feat
         self.top = nn.ModuleList(top)
         self.backbone = nn.ModuleList(bb)
-        self.head_prob = nn.Module()
-        self.head_prob.weight = nn.Parameter(torch.zeros(ch, 1))
-        self.head_prob.bias = nn.Parameter(torch.zeros(1))
-        self.head_dist = nn.Module()
-        self.head_dist.weight = nn.Parameter(torch.zeros(ch, self.n_rays))
-        self.head_dist.bias = nn.Parameter(torch.zeros(self.n_rays))
+        return ch
+
+    def _build_resnet(self, c):
+        """unet.py StarDistNet.__call__, ``backbone == "resnet"``."""
+        nd = self.n_dim
+        k = tuple(int(v) for v in c.resnet_kernel_size)
+        if len(set(k)) != 1 or c.resnet_batch_norm:
+            raise NotImplementedError(
+                "only the ResNet backbone with cubic kernels and no batch norm is ported")
+        if str(c.resnet_kernel_init).lower() != "he_normal":
+            raise NotImplementedError("only the ResNet's he_normal initializer is ported")
+        act = c.resnet_activation
+        ch = base = int(c.resnet_n_filter_base)
+        self.stem = nn.ModuleList([Conv(int(c.n_channel_in), base, 7, nd),
+                                   Conv(base, base, 3, nd)])
+        blocks, pooled = [], np.ones(nd, int)
+        for _ in range(int(c.resnet_n_blocks)):
+            pool = 1 + (np.asarray(self.grid) > pooled)
+            pooled *= pool
+            c_out = ch * 2 if any(p > 1 for p in pool) else ch
+            blocks.append(ResNetBlock(ch, c_out, k[0], tuple(int(p) for p in pool),
+                                      int(c.resnet_n_conv_per_block), nd, act))
+            ch = c_out
+        if tuple(pooled) != self.grid:
+            raise ValueError(f"resnet_n_blocks = {c.resnet_n_blocks} cannot reach grid {self.grid}")
+        self.blocks = nn.ModuleList(blocks)
+        self.n_feat = int(c.net_conv_after_resnet)
+        self.feat = Conv(ch, self.n_feat, k[0], nd, 1, act) if self.n_feat > 0 else None
+        return self.n_feat if self.n_feat > 0 else ch
 
     def conv_blocks(self):
+        """The convs of the conv kernel (the U-Net's); the ResNet has none."""
+        if self.backbone_kind == "resnet":
+            return []
         return list(self.top) + list(self.backbone)
+
+    def resnet_convs(self):
+        """The ResNet's convs as flax creates them: the stem, each block's
+        convs and shortcut, the feature conv."""
+        convs = list(self.stem)
+        for blk in self.blocks:
+            convs += list(blk.convs) + ([blk.shortcut] if blk.shortcut is not None else [])
+        return convs + ([self.feat] if self.feat is not None else [])
 
     @torch.no_grad()
     def init_weights(self, generator):
         """flax's initializers, drawn from ``generator`` (a CPU generator, so
         that every device starts from the same weights): glorot-uniform
-        conv kernels, lecun-normal (truncated to 2 std) 1x1 heads, zero
-        biases."""
-        taps = 3 ** self.n_dim
+        U-Net and feature convs, he-normal ResNet convs (stem, blocks,
+        shortcuts), lecun-normal 1x1 heads (both normals truncated at 2
+        std), zero biases."""
+        def trunc_normal(w, scale):
+            # flax's variance_scaling: stddev sqrt(scale / fan_in) over the std
+            # of a unit normal cut at +-2
+            fan_in = math.prod(w.shape[:-1])
+            r = torch.empty(w.shape)
+            nn.init.trunc_normal_(r, 0.0, 1.0, -2.0, 2.0, generator=generator)
+            w.copy_(r * (math.sqrt(scale / fan_in) / .87962566103423978))
+
+        def glorot(w):
+            taps = math.prod(w.shape[:-2])
+            lim = math.sqrt(6.0 / (taps * w.shape[-2] + taps * w.shape[-1]))
+            w.copy_((torch.rand(w.shape, generator=generator) * 2 - 1) * lim)
+
+        if self.backbone_kind == "resnet":
+            for conv in self.resnet_convs():
+                if conv is self.feat:
+                    glorot(conv.weight)
+                else:
+                    trunc_normal(conv.weight, 2.0)
+                conv.bias.zero_()
         for blk in self.conv_blocks():
-            k = blk.weight
-            lim = math.sqrt(6.0 / (taps * k.shape[-2] + taps * k.shape[-1]))
-            k.copy_((torch.rand(k.shape, generator=generator) * 2 - 1) * lim)
+            glorot(blk.weight)
             blk.bias.zero_()
         for head in (self.head_prob, self.head_dist):
-            w = torch.empty(head.weight.shape)
-            nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-            # flax: stddev sqrt(1 / fan_in) over the std of a unit normal cut at +-2
-            head.weight.copy_(w * (math.sqrt(1.0 / w.shape[0]) / .87962566103423978))
+            trunc_normal(head.weight, 1.0)
             head.bias.zero_()
+
+    def _resnet(self, h):
+        """The ResNet's features of (B, C, *sp) in h's type."""
+        for conv in self.stem:
+            h = conv(h)
+        for blk in self.blocks:
+            h = blk(h)
+        return self.feat(h) if self.feat is not None else h
 
     def _walk(self, h, conv, pool, up, cat):
         """The topology up to the features: ``conv(block, h)``, ``pool(h,
@@ -222,8 +367,11 @@ class StarDistNet(nn.Module):
         always does."""
         plain = plain or self.dtype == torch.float32
         with torch.no_grad():
-            feat = self._walk(x.to(self.dtype), lambda blk, h: blk(h, plain), max_pool, upsample,
-                              lambda a, b: torch.cat([a, b], dim=-1))
+            if self.backbone_kind == "resnet":
+                feat = self._resnet(x.to(self.dtype).movedim(-1, 0)[None])[0].movedim(0, -1)
+            else:
+                feat = self._walk(x.to(self.dtype), lambda blk, h: blk(h, plain), max_pool,
+                                  upsample, lambda a, b: torch.cat([a, b], dim=-1))
             # fused 1+R head as one f32 channel contraction; the weights are
             # rounded to the activation type first, as the reference does
             sp, C = feat.shape[:-1], feat.shape[-1]
@@ -251,9 +399,12 @@ class StarDistNet(nn.Module):
             return h
 
         h = x.float().movedim(-1, 1)                 # (B, C, *sp), channels-last in memory
-        feat = self._walk(h, lambda blk, h: blk.train_forward(h, generator),
-                          lambda h, p: pool(h, p) if any(v > 1 for v in p) else h, up,
-                          lambda a, b: torch.cat([a, b], dim=1))
+        if self.backbone_kind == "resnet":
+            feat = self._resnet(h)
+        else:
+            feat = self._walk(h, lambda blk, h: blk.train_forward(h, generator),
+                              lambda h, p: pool(h, p) if any(v > 1 for v in p) else h, up,
+                              lambda a, b: torch.cat([a, b], dim=1))
         feat = feat.movedim(1, -1)                   # (B, *sp', C)
         prob = torch.sigmoid(feat @ self.head_prob.weight + self.head_prob.bias)
         dist = feat @ self.head_dist.weight + self.head_dist.bias

@@ -180,20 +180,31 @@ def params_from_flax(net, params):
     """State dict of ``net`` (:class:`.unet.StarDistNet`) from a flax
     parameter tree (numpy or array-like leaves).
 
-    Module names follow the flax call order: top-level ``ConvBlock_i`` are
-    the grid pre-pooling convs then the feature conv; ``UNetBackbone_0/
-    ConvBlock_j`` the backbone; ``head_prob`` / ``head_dist`` the 1x1 heads.
-    Conv kernels stay HWIO (3, 3, C, Cout)."""
+    Module names follow the flax call order. U-Net: top-level
+    ``ConvBlock_i`` are the grid pre-pooling convs then the feature conv;
+    ``UNetBackbone_0/ConvBlock_j`` the backbone. ResNet: ``Conv_0`` (7^3)
+    and ``Conv_1`` (3^3), ``ResNetBlock_b/Conv_k`` (the shortcut last),
+    ``ConvBlock_0`` the feature conv. Then ``head_prob`` / ``head_dist``, the
+    1x1 heads. Conv kernels stay HWIO (3, 3, C, Cout) / DHWIO."""
+    def arr(p):
+        return torch.from_numpy(np.array(p, np.float32))
+
     def conv(p):
-        return (torch.from_numpy(np.array(p["Conv_0"]["kernel"], np.float32)),
-                torch.from_numpy(np.array(p["Conv_0"]["bias"], np.float32)))
+        return arr(p["Conv_0"]["kernel"]), arr(p["Conv_0"]["bias"])
 
     sd = {}
-    for i in range(len(net.top)):
-        sd[f"top.{i}.weight"], sd[f"top.{i}.bias"] = conv(params[f"ConvBlock_{i}"])
-    bb = params["UNetBackbone_0"]
-    for j in range(len(net.backbone)):
-        sd[f"backbone.{j}.weight"], sd[f"backbone.{j}.bias"] = conv(bb[f"ConvBlock_{j}"])
+    if net.backbone_kind == "resnet":
+        for name, p in _resnet_names(net):
+            leaf = params
+            for key in p.split("/"):
+                leaf = leaf[key]
+            sd[f"{name}.weight"], sd[f"{name}.bias"] = arr(leaf["kernel"]), arr(leaf["bias"])
+    else:
+        for i in range(len(net.top)):
+            sd[f"top.{i}.weight"], sd[f"top.{i}.bias"] = conv(params[f"ConvBlock_{i}"])
+        bb = params["UNetBackbone_0"]
+        for j in range(len(net.backbone)):
+            sd[f"backbone.{j}.weight"], sd[f"backbone.{j}.bias"] = conv(bb[f"ConvBlock_{j}"])
     for head in ("head_prob", "head_dist"):
         k = np.array(params[head]["kernel"], np.float32)
         sd[f"{head}.weight"] = torch.from_numpy(k.reshape(k.shape[-2:]).copy())
@@ -201,22 +212,45 @@ def params_from_flax(net, params):
     return sd
 
 
+def _resnet_names(net):
+    """(state-dict prefix, flax path) of each ResNet conv, in flax's order."""
+    out = [("stem.0", "Conv_0"), ("stem.1", "Conv_1")]
+    for b, blk in enumerate(net.blocks):
+        out += [(f"blocks.{b}.convs.{k}", f"ResNetBlock_{b}/Conv_{k}")
+                for k in range(len(blk.convs))]
+        if blk.shortcut is not None:
+            out.append((f"blocks.{b}.shortcut", f"ResNetBlock_{b}/Conv_{len(blk.convs)}"))
+    if net.feat is not None:
+        out.append(("feat", "ConvBlock_0/Conv_0"))
+    return out
+
+
 def params_to_flax(net):
     """The flax parameter tree of ``net`` (numpy float32 leaves), in the
-    order flax creates the modules: the grid pre-pooling convs, the
-    backbone, the feature conv, the heads; the inverse of
-    :func:`params_from_flax`."""
+    order flax creates the modules (U-Net: the grid pre-pooling convs, the
+    backbone, the feature conv; ResNet: the stem, the blocks, the feature
+    conv; then the heads); the inverse of :func:`params_from_flax`."""
     def arr(t):
         return t.detach().cpu().float().numpy().copy()
 
     def conv(blk):
         return {"Conv_0": {"kernel": arr(blk.weight), "bias": arr(blk.bias)}}
 
-    n_pre = len(net.prepools) * net.n_conv
-    params = {f"ConvBlock_{i}": conv(net.top[i]) for i in range(n_pre)}
-    params["UNetBackbone_0"] = {f"ConvBlock_{j}": conv(b) for j, b in enumerate(net.backbone)}
-    for i in range(n_pre, len(net.top)):
-        params[f"ConvBlock_{i}"] = conv(net.top[i])
+    if net.backbone_kind == "resnet":
+        params = {}
+        sd = net.state_dict()
+        for name, path in _resnet_names(net):
+            leaf = params
+            for key in path.split("/"):
+                leaf = leaf.setdefault(key, {})
+            leaf.update(kernel=arr(sd[f"{name}.weight"]), bias=arr(sd[f"{name}.bias"]))
+    else:
+        n_pre = len(net.prepools) * net.n_conv
+        params = {f"ConvBlock_{i}": conv(net.top[i]) for i in range(n_pre)}
+        params["UNetBackbone_0"] = {f"ConvBlock_{j}": conv(b)
+                                    for j, b in enumerate(net.backbone)}
+        for i in range(n_pre, len(net.top)):
+            params[f"ConvBlock_{i}"] = conv(net.top[i])
     for head in ("head_prob", "head_dist"):
         mod = getattr(net, head)
         params[head] = {"kernel": arr(mod.weight).reshape((1,) * net.n_dim + tuple(mod.weight.shape)),

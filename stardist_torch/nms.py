@@ -39,6 +39,18 @@ def _ind_prob_thresh(prob, prob_thresh, b=2):
     return ind_thresh
 
 
+def _dense_candidates(dist, prob, grid, prob_thresh, b):
+    """The candidates of dense maps on their device: (prob, dist, points)
+    of :func:`_ind_prob_thresh`'s mask (row-major, as np.where) in
+    :func:`descending_order`, points (int64) in full-resolution pixels
+    (times ``grid``)."""
+    mask = _ind_prob_thresh(prob, prob_thresh, b)
+    scores = prob[mask]
+    order = descending_order(scores)
+    points = torch.nonzero(mask)[order] * torch.tensor(grid, device=dist.device)
+    return scores[order], dist[mask][order], points
+
+
 def non_maximum_suppression(dist, prob, grid=(1, 1), b=2, nms_thresh=0.5, prob_thresh=0.5,
                             use_bbox=True, use_kdtree=True, verbose=False, *, stats=None,
                             device="cuda"):
@@ -54,13 +66,8 @@ def non_maximum_suppression(dist, prob, grid=(1, 1), b=2, nms_thresh=0.5, prob_t
     dist = as_tensor_on(dist, device)
     prob = as_tensor_on(prob, dist.device)
     assert prob.dim() == 2 and dist.dim() == 3 and prob.shape == dist.shape[:2]
-    grid = _normalize_grid(grid, 2)
-
-    mask = _ind_prob_thresh(prob, prob_thresh, b)
-    scores = prob[mask]                                  # row-major, as np.where
-    order = descending_order(scores)
-    probi, disti = scores[order], dist[mask][order]
-    points = torch.nonzero(mask)[order] * torch.tensor(grid, device=dist.device)
+    probi, disti, points = _dense_candidates(dist, prob, _normalize_grid(grid, 2),
+                                             prob_thresh, b)
     keep = non_maximum_suppression_inds(disti, points, scores=probi, thresh=nms_thresh,
                                         stats=stats)
     if verbose:
@@ -137,6 +144,32 @@ def non_maximum_suppression_inds(dist, points, scores, thresh=0.5, use_bbox=True
     keep = nms_polygons(dist.to(torch.float32), points.to(torch.float32),
                         thresh=float(thresh), stats=stats)
     return keep.cpu().numpy() if as_numpy else keep
+
+
+def non_maximum_suppression_3d(dist, prob, rays, grid=(1, 1, 1), b=2, nms_thresh=0.5,
+                               prob_thresh=0.5, use_bbox=True, use_kdtree=True, verbose=False,
+                               *, stats=None, device="cuda"):
+    """NMS of dense 3D predictions, dist (Nz, Ny, Nx, R) and prob (Nz, Ny,
+    Nx): the candidates of :func:`_ind_prob_thresh`, in
+    :func:`descending_order`, through the greedy polyhedron NMS, all on the
+    device of ``dist`` (numpy inputs go to ``device``). ``use_bbox`` and
+    ``use_kdtree`` change nothing, as in the reference.
+
+    Returns (points, prob, dist) of the survivors, in descending-prob order;
+    points (int64) in full-resolution voxels (times ``grid``)."""
+    as_numpy = not isinstance(dist, torch.Tensor)
+    dist = as_tensor_on(dist, device)
+    prob = as_tensor_on(prob, dist.device)
+    assert prob.dim() == 3 and dist.dim() == 4 and dist.shape[-1] == len(rays) \
+        and prob.shape == dist.shape[:3]
+    probi, disti, points = _dense_candidates(dist, prob, _normalize_grid(grid, 3),
+                                             prob_thresh, b)
+    keep = non_maximum_suppression_3d_inds(disti, points, rays, scores=probi,
+                                           thresh=nms_thresh, stats=stats)
+    if verbose:
+        print("keeping %s/%s polyhedra" % (int(keep.sum()), len(keep)))
+    out = points[keep], probi[keep], disti[keep]
+    return tuple(t.cpu().numpy() for t in out) if as_numpy else out
 
 
 def non_maximum_suppression_3d_sparse(dist, prob, points, rays, b=2, nms_thresh=0.5,

@@ -6,10 +6,13 @@ nearest pixel of the patch not labeled ``l``, over the largest such distance
 of ``l``; background 0. The squared distances come from the separable
 min-plus form, per axis ``D(i) = min_j f(j) + (i - j)^2``, one-vs-rest over
 the patch's labels, in float32 as the reference computes them. The
-reference's compiler fuses the (labels, n, n, n) sum into the min; eager
-PyTorch writes it out, so the labels go through in chunks that keep it
-within a fixed budget. Each pixel takes its value from the one label it
-carries, so the chunking changes no sum.
+reference's compiler fuses the (labels, *sp, n) sum of each axis into the
+min; eager PyTorch writes it out, so the labels go through in chunks that
+keep it within a fixed budget, and the lines of one axis go through in
+chunks too when one label's sum alone exceeds it (a 128^3 patch: 2^21 lines
+of 128, 1 GiB). Each pixel takes its value from the one label it carries,
+and a min is the same however its lines are grouped, so the chunking
+changes no sum.
 """
 from __future__ import annotations
 
@@ -18,16 +21,25 @@ import math
 import torch
 
 _INF = 1e12
-_BUDGET = 1 << 26    # float32 elements of one chunk's (labels, n, n, n) sum
+_BUDGET = 1 << 26    # float32 elements of one chunk's (labels, *sp, n) sum
 
 
 def _minplus_axis(f, axis, spacing):
-    """Exact 1D squared EDT along ``axis`` of f (squared distances)."""
+    """Exact 1D squared EDT along ``axis`` of f (squared distances); the
+    lines go through in chunks of at most ``_BUDGET`` summed elements."""
     n = f.shape[axis]
     i = torch.arange(n, dtype=torch.float32, device=f.device)
     d2 = ((i[:, None] - i[None, :]) * spacing) ** 2
     f = f.movedim(axis, -1)
-    return (f[..., None, :] + d2).amin(-1).movedim(-1, axis)
+    lines = f.reshape(-1, n)
+    rows = max(1, _BUDGET // (n * n))
+    if rows >= lines.shape[0]:
+        out = (lines[:, None, :] + d2).amin(-1)
+    else:
+        out = torch.empty_like(lines)
+        for r0 in range(0, lines.shape[0], rows):
+            out[r0:r0 + rows] = (lines[r0:r0 + rows, None, :] + d2).amin(-1)
+    return out.view(f.shape).movedim(-1, axis)
 
 
 def edt_prob_batch(lbl, labels, spacing=None):

@@ -18,14 +18,15 @@ stretched by ``scale_dist`` per axis about their centres as the reference's
 splat does: the pixel's offset from the centre times ``1 / scale_dist`` is
 tested in the polygon's own frame.
 In 3D the window is a cube and the inside test is the barycentric face test
-of :func:`.polyhedron.points_in_polyhedra` (plain torch on any device).
+of :func:`.polyhedron.points_in_polyhedra` (plain torch on any device), or
+the reference's "kernel" (face half-spaces) or "bbox" test.
 """
 from __future__ import annotations
 
 import torch
 
 from .polygon import points_in_polygons
-from .polyhedron import points_in_polyhedra, polyhedron_face_inverses
+from .polyhedron import _cross, points_in_polyhedra, polyhedron_face_inverses
 from .raster_tiles import inv_scale, rasterize_polygons_tiles_cuda, tile_window, unpack_labels
 
 
@@ -106,8 +107,29 @@ def rasterize_polygons_splat(dist, points, shape, order_values, labels=None,
     return unpack_labels(img, (H, W), out_dtype)
 
 
+def _inside_kernel(d, p, q, ray_dirs, faces):
+    """``mode="kernel"``: q (n, S, 3) on the inner side of every face plane
+    of the polyhedra (d (n, R), centres p (n, 3)), within 1e-6; the face
+    normals as the reference's ``jnp.cross`` (FMA) forms them."""
+    tri = (d[..., None] * ray_dirs)[:, faces]                       # (n, F, 3, 3)
+    a, b, c = tri[..., 0, :], tri[..., 1, :], tri[..., 2, :]
+    n = _cross(b - a, c - a)
+    off = torch.sum(n * a, dim=-1)
+    sgn = torch.where(off < 0, -1.0, 1.0)
+    n, off = n * sgn[..., None], off * sgn
+    u = q[:, :, None, :] - p[:, None, None, :]                      # (n, S, 1, 3)
+    return torch.all(torch.sum(u * n[:, None], dim=-1) <= off[:, None] + 1e-6, dim=-1)
+
+
+def _inside_bbox(d, p, q, ray_dirs):
+    """``mode="bbox"``: q (n, S, 3) inside the polyhedra's bounding boxes."""
+    v = d[..., None] * ray_dirs                                     # (n, R, 3)
+    lo, hi = p + v.amin(dim=1), p + v.amax(dim=1)
+    return torch.all((q >= lo[:, None]) & (q <= hi[:, None]), dim=-1)
+
+
 def rasterize_polyhedra(dist, points, ray_dirs, faces, shape, order_values, labels=None,
-                        return_count=False):
+                        return_count=False, mode="full"):
     """Per voxel, the polyhedron with the largest positive order value wins.
 
     dist (N, R), points (N, 3), ray_dirs (R, 3), faces (F, 3), order_values
@@ -116,7 +138,12 @@ def rasterize_polyhedra(dist, points, ray_dirs, faces, shape, order_values, labe
     its rounded centre. Returns (img, count): img int32 (D, H, W) on that
     device holding the winner's ``labels[i]`` (or its order value when
     ``labels`` is None), 0 for background; count, with ``return_count``,
-    the int32 number of drawn polyhedra covering each voxel, else None."""
+    the int32 number of drawn polyhedra covering each voxel, else None.
+    ``mode`` is the reference's: "full" the exact polyhedron, "kernel" the
+    intersection of its faces' inner half-spaces, "bbox" its bounding
+    box."""
+    if mode not in ("full", "kernel", "bbox"):
+        raise ValueError(f"unknown render mode {mode!r}")
     dev = dist.device
     D, H, W = (int(s) for s in shape)
     N = dist.shape[0]
@@ -141,8 +168,14 @@ def rasterize_polyhedra(dist, points, ray_dirs, faces, shape, order_values, labe
         q = torch.stack(torch.broadcast_tensors(
             zz[:, :, None, None].float(), yy[:, None, :, None].float(),
             xx[:, None, None, :].float()), dim=-1).reshape(n, -1, 3)
-        inv, valid = polyhedron_face_inverses(d, ray_dirs, faces)
-        inside = points_in_polyhedra(inv, valid, p, q) & (order_values[i0:i0 + n] > 0)[:, None]
+        if mode == "bbox":
+            inside = _inside_bbox(d, p, q, ray_dirs)
+        elif mode == "kernel":
+            inside = _inside_kernel(d, p, q, ray_dirs, faces)
+        else:
+            inv, valid = polyhedron_face_inverses(d, ray_dirs, faces)
+            inside = points_in_polyhedra(inv, valid, p, q)
+        inside = inside & (order_values[i0:i0 + n] > 0)[:, None]
         in_img = (((zz >= 0) & (zz < D))[:, :, None, None]
                   & ((yy >= 0) & (yy < H))[:, None, :, None]
                   & ((xx >= 0) & (xx < W))[:, None, None, :]).reshape(n, -1)

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import stardist_tpu.geometry as jgeom
+import stardist_tpu.geometry.geom3d as jgeom3d
 import stardist_tpu.nms as jnms
 import stardist_tpu.utils as jutils
 from stardist_tpu.models import StarDist2D as StarDist2DJax
@@ -51,6 +52,16 @@ PAIRS = {
     "StarDist2D.optimize_thresholds": (StarDist2D.optimize_thresholds,
                                        StarDist2DJax.optimize_thresholds),
     "optimize_threshold": (tutils.optimize_threshold, jutils.optimize_threshold),
+    "StarDist3D.predict_instances_device": (StarDist3D.predict_instances_device,
+                                            StarDist3DJax.predict_instances_device),
+    "StarDist3D.train": (StarDist3D.train, StarDist3DJax.train),
+    "non_maximum_suppression_3d": (tnms.non_maximum_suppression_3d,
+                                   jnms.non_maximum_suppression_3d),
+    "relabel_image_stardist3D": (tgeom.relabel_image_stardist3D,
+                                 jgeom.relabel_image_stardist3D),
+    "dist_to_volume": (tgeom.dist_to_volume, jgeom3d.dist_to_volume),
+    "dist_to_centroid": (tgeom.dist_to_centroid, jgeom3d.dist_to_centroid),
+    "export_to_obj_file3D": (tgeom.export_to_obj_file3D, jgeom.export_to_obj_file3D),
 }
 
 

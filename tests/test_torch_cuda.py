@@ -504,3 +504,96 @@ def test_train_on_card_and_its_step_makes_no_host_sync(cuda_device):
         gm._train_step(gm._put_batch(raw))
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+def _train3d_models(cuda_device, backbone):
+    from stardist_torch.models import Config3D
+    kw = (dict(resnet_n_blocks=2, resnet_n_filter_base=8, net_conv_after_resnet=16)
+          if backbone == "resnet" else dict(unet_n_depth=1, unet_n_filter_base=8,
+                                            net_conv_after_unet=16))
+    cfg = Config3D(n_rays=32, grid=(1, 2, 2), anisotropy=(2.0, 1.0, 1.0), backbone=backbone,
+                   train_patch_size=(16, 64, 64), train_batch_size=2, **kw)
+    return [StarDist3D(cfg, name="t", basedir=None, device=d) for d in (cuda_device, "cpu")]
+
+
+def test_march_and_edt_3d_on_card_equal_cpu(cuda_device):
+    """The 3D star-distance march (bounded by march_steps and not) and the
+    EDT with spacing (2, 1, 1): the card's bits are the CPU's."""
+    from stardist_torch.ops.edt import edt_prob_batch
+    from stardist_torch.ops.stardist3d import march_steps, star_dist3d
+    from stardist_torch.rays3d import Rays_GoldenSpiral
+    y = np.stack([_nuclei3d((24, 64, 64), 20, s)[1] for s in range(2)])
+    labels = np.zeros((2, 21), np.int32)
+    for j in range(2):
+        u = np.unique(y[j][y[j] > 0])
+        labels[j, :len(u)] = u
+    rays = Rays_GoldenSpiral(64, anisotropy=(2.0, 1.0, 1.0))
+    yc, yg = torch.from_numpy(y), torch.from_numpy(y).to(cuda_device)
+    for n_steps in (None, march_steps(y, rays)):
+        a = star_dist3d(yg, rays, (1, 2, 2), n_steps=n_steps)
+        assert torch.equal(a.cpu(), star_dist3d(yc, rays, (1, 2, 2), n_steps=n_steps))
+    lab = torch.from_numpy(labels)
+    e = edt_prob_batch(yg, lab.to(cuda_device), (2.0, 1.0, 1.0))
+    assert torch.equal(e.cpu(), edt_prob_batch(yc, lab, (2.0, 1.0, 1.0))) and e.max() > 0.99
+
+
+@pytest.mark.parametrize("backbone", ["unet", "resnet"])
+def test_train3d_step_on_card_agrees_with_cpu(cuda_device, backbone):
+    """One 3D step's targets (exactly), loss, metrics (rtol 1e-4) and
+    gradients (1e-3 of their largest) on the card against the CPU's."""
+    from stardist_torch.models.model3d import StarDistData3D
+    fields = [_nuclei3d((24, 96, 96), 30, s) for s in range(3)]
+    gm, cm = _train3d_models(cuda_device, backbone)
+    data = StarDistData3D([f[0] for f in fields], [f[1] for f in fields], rays=cm.rays,
+                          batch_size=2, length=1, patch_size=(16, 64, 64), grid=(1, 2, 2),
+                          anisotropy=(2.0, 1.0, 1.0), device="cpu")
+    np.random.seed(0)
+    raw = data.raw_item(0)
+    outs = []
+    for m in (gm, cm):
+        m.prepare_for_training()
+        t = m._targets_fn(m._put_batch(raw))
+        loss, metrics = m._loss_and_metrics(t)
+        loss.backward()
+        outs.append((t, {k: float(v) for k, v in metrics.items()},
+                     {k: p.grad.cpu() for k, p in m.net.named_parameters()}))
+    (tg, mg, gg), (tc, mc, gc) = outs
+    for k in ("x", "prob", "dist"):
+        assert torch.equal(tg[k].cpu(), tc[k]), k
+    for k in mc:
+        assert abs(mg[k] - mc[k]) <= 1e-4 * abs(mc[k]), k
+    for k in gc:
+        assert (gg[k] - gc[k]).abs().max() <= 1e-3 * gc[k].abs().max(), k
+
+
+def test_resnet_forward_on_card(cuda_device):
+    """The ResNet's inference route on the card: bf16 F.conv3d within 2e-2
+    of the CPU's f32 forward (the kernel-vs-plain tolerance of chip_smoke),
+    f32 on the card (TF32 off) within 1e-4; no conv kernel launch."""
+    gm, cm = _train3d_models(cuda_device, "resnet")
+    x = torch.from_numpy(_nuclei3d((16, 64, 96), 10, 1)[0][..., None])
+    n0 = tconv.KERNEL3D.launches
+    prob, dist = gm.net(x.to(cuda_device))
+    assert tconv.KERNEL3D.launches == n0 and gm.net.dtype == torch.bfloat16
+    prob_c, dist_c = cm.net(x)
+    scale = max(1.0, dist_c.abs().max().item())
+    assert (prob.cpu() - prob_c).abs().max() < 2e-2
+    assert (dist.cpu() - dist_c).abs().max() < 2e-2 * scale
+    gm.set_inference_precision("float32")
+    prob32, dist32 = gm.net(x.to(cuda_device))
+    assert (prob32.cpu() - prob_c).abs().max() < 1e-4
+    assert (dist32.cpu() - dist_c).abs().max() < 1e-4 * scale
+
+
+def test_3d_device_path_fetch_false_returns_cuda_tensors(cuda_device):
+    img, _ = _nuclei3d((32, 96, 96), 12, 3)
+    gm = StarDist3D(None, "3D_demo", "models/examples", device=cuda_device)
+    lab, det = gm.predict_instances(img)
+    lab_d, det_d = gm.predict_instances_device(img)
+    assert np.array_equal(lab_d, lab) and lab.max() > 0
+    lab_t, det_t = gm.predict_instances_device(img, fetch=False)
+    assert lab_t.is_cuda and lab_t.dtype == torch.int32
+    assert all(det_t[k].is_cuda for k in ("dist", "points", "prob"))
+    assert np.array_equal(lab_t.cpu().numpy(), lab)
+    lab_s, _ = gm.predict_instances(img, sparse=False)
+    assert np.array_equal(lab_s, lab)

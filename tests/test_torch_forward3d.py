@@ -108,5 +108,10 @@ def test_forward_shapes_and_layers(grid, depth):
 
 
 def test_resnet_backbone_is_not_ported():
+    """The ResNet backbone is ported (tests/test_torch_train3d.py); its
+    batch norm and non-cubic kernels are not."""
+    assert len(StarDistNet(Config3D(rays=8, backbone="resnet")).resnet_convs()) == 15
     with pytest.raises(NotImplementedError):
-        StarDistNet(Config3D(rays=8, backbone="resnet"))
+        StarDistNet(Config3D(rays=8, backbone="resnet", resnet_batch_norm=True))
+    with pytest.raises(NotImplementedError):
+        StarDistNet(Config3D(rays=8, backbone="resnet", resnet_kernel_size=(1, 3, 3)))
