@@ -1,6 +1,6 @@
 """Smoke run of stardist_torch on one CUDA card.
 
-    python3 chip_smoke.py [--phases bcdefghijklmno]
+    python3 chip_smoke.py [--phases bcdefghijklmnopqr]
 
 Phases (each prints one line; any failed check exits non-zero):
   (a) the card's name and power limit; build the four CUDA kernels from
@@ -119,8 +119,43 @@ Phases (each prints one line; any failed check exits non-zero):
       sparse=True, scale=(1, 0.5, 0.5) and overlap_label=-1; each call's
       wall and stages and the conv3d launches; on a 32x64x64 crop the
       CPU's candidates through the card's and the CPU's NMS and raster with
-      scale and overlap_label: labels exactly equal.
-The line before the last is the kernels' JSON record; the last line is
+      scale and overlap_label: labels exactly equal;
+  (p) multiclass 2D: the published Config2D() at full width with three
+      input channels and six classes (grid 2), seeded weights, 4096^2:
+      kernel path vs plain for prob, dist and prob_class, and the conv
+      kernel at the two layers the other nets lack (the C = 3 first layer,
+      the class branch's feature conv) against cuDNN, plain and the bound,
+      as (b); eight seeded 1024^2 three-channel fields whose nuclei carry a
+      seeded class 1..6: one host-built batch (class maps included) card vs
+      CPU with TF32 off (targets exactly, loss, prob_class_loss and metrics
+      within METRIC_RTOL, gradients within GRAD_TOL), StarDist2D.train 2 x
+      10 steps (finite losses, prob_class_loss falling; steps/s and the step
+      split); a seeded six-class branch grafted on 2D_demo (grafted): on
+      (e)'s 2048^2 field the labels and survivors exactly 2D_demo's,
+      class_prob the dense class map at the survivors, class_id its argmax,
+      predict_instances_device equal with fetch=True and fetch=False (class
+      rows on the card), walls against 2D_demo's in turn, launches; at
+      1024^2 the card's candidates through the card's and the CPU's NMS and
+      raster (labels and class rows equal); the class logits (log
+      prob_class, centred) card vs the CPU's bf16 plain path within FWD_TOL
+      of their largest magnitude, as dist in (d), the class_id flips only
+      at top-two logit margins inside the largest logit difference, and
+      matching accuracy against the CPU's f32 path >= 0.99;
+  (q) multiclass 3D: a two-class branch grafted on 3D_demo, (h)'s
+      64x256x256 field: labels equal 3D_demo's, class_prob the class map at
+      the survivors, the conv3d kernel at every conv (the class conv too);
+      the 32x96x96 crop's candidates card vs CPU, the class logits within
+      FWD_TOL of the CPU's bf16 plain path, as in (p);
+      then (n)'s notebook configuration (ResNet) with n_classes=2: one step
+      card vs CPU and 1 x 5 steps on the card;
+  (r) predict_instances_big: 2D_demo on a seeded 8192^2 field, blocks of
+      4096 with min_overlap and context 128, against one predict_instances
+      call on the field (matching accuracy >= 0.99): walls, blocks,
+      objects, peak memory, the raster packing each call ran; then the
+      grafted six-class 2D_demo block-wise at 4096^2 with blocks of 2048:
+      one class row per object.
+The line before the last is the kernels' JSON record (the launches of
+(e), (h), (p), (q) and (r)); the last line is
 {"ok": true, "device": {...}}. With --phases, only (a) and the named phases
 run (e.g. --phases k to time the tiled call alone), and neither line is
 printed.
@@ -168,7 +203,15 @@ TRAIN3D_FIELDS = (8, (64, 192, 192))  # (n): synthetic nuclei volumes (count, sh
 TRAIN3D_CONFIG = dict(n_rays=96, train_patch_size=(48, 96, 96), train_batch_size=2)  # (n)
 TRAIN3D_EPOCHS, TRAIN3D_STEPS = 2, 10  # (n): the ResNet; the U-Net trains 1 x 5
 SURFACE3D_CMP = (32, 64, 64)     # (o): card vs CPU crop
-ALL_PHASES = "bcdefghijklmno"    # (a) runs always
+# (p): the published Config2D() at full width with H&E-style three-channel
+# input and the six nucleus classes of the CoNIC 2022 challenge
+MC_CONFIG = dict(n_channel_in=3, n_classes=6, grid=(2, 2))
+MC_TRAIN_EPOCHS, MC_TRAIN_STEPS = 2, 10  # (p)
+MC3D_CLASSES = 2                 # (q)
+BIG_SIZE = 8192                  # (r): predict_instances_big's field side
+BIG_BLOCKS = dict(block_size=4096, min_overlap=128, context=128)  # (r)
+BIG_MC = (4096, 2048)            # (r): the multiclass field's side and block size
+ALL_PHASES = "bcdefghijklmnopqr"  # (a) runs always
 # one H100 SXM (NVIDIA's data sheet, dense, at the 700 W limit): bf16 tensor
 # cores, f32 outside them, HBM3
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -336,18 +379,19 @@ def library_conv_ms(xs, w, b):
         torch.backends.cudnn.benchmark = prev
 
 
-def conv_layers_vs_plain(net, x, dev, kernel_fn, plain_fn):
+def conv_layers_vs_plain(net, x, dev, kernel_fn, plain_fn, only=None):
     """Kernel vs plain at every conv layer shape of ``net``'s forward on x
-    (shapes found with forward hooks): checks each, times each beside the
-    cuDNN yardstick and its bound. Returns (per-shape dicts, totals dict);
-    the totals weight each shape by its count in the forward."""
+    (shapes found with forward hooks; of the convs ``only`` where given):
+    checks each, times each beside the cuDNN yardstick and its bound.
+    Returns (per-shape dicts, totals dict); the totals weight each shape by
+    its count in the forward."""
     shapes = {}
 
     def hook(mod, args, out):
         key = (tuple(args[0].shape), mod.weight.shape[-1], mod.act)
         shapes.setdefault(key, [mod, 0])[1] += 1
 
-    hooks = [blk.register_forward_hook(hook) for blk in net.conv_blocks()]
+    hooks = [blk.register_forward_hook(hook) for blk in (only or net.conv_blocks())]
     net(x)
     for h in hooks:
         h.remove()
@@ -1499,11 +1543,11 @@ def phase_m(dev, kernels, matching, StarDist2D, rt):
         shutil.rmtree(workdir, ignore_errors=True)
 
 
-def train3d_config(Y, backbone, Config3D):
+def train3d_config(Y, backbone, Config3D, **extra):
     """upstream StarDist's examples/3D/2_training.ipynb: the anisotropy from
     the median extents of the training labels, the grid 1 along an axis
     more than 1.5 times coarser and 2 along the others, 96 golden-spiral
-    rays with that anisotropy."""
+    rays with that anisotropy; ``extra`` config keys on top."""
     from stardist_torch.rays3d import Rays_GoldenSpiral
     from stardist_torch.utils import calculate_extents
     extents = calculate_extents(Y)
@@ -1512,7 +1556,7 @@ def train3d_config(Y, backbone, Config3D):
     kw = dict(TRAIN3D_CONFIG)
     rays = Rays_GoldenSpiral(kw.pop("n_rays"), anisotropy=anisotropy)
     return Config3D(rays=rays, grid=grid, anisotropy=anisotropy, backbone=backbone,
-                    train_tensorboard=False, **kw)
+                    train_tensorboard=False, **kw, **extra)
 
 
 def train3d_vs_cpu(dev, StarDist3D, cfg, raw):
@@ -1736,6 +1780,439 @@ def phase_o(dev, conv, matching, StarDist3D):
           f"({len(det_c['prob'])} objects)", flush=True)
 
 
+def multiclass_config(config, n_classes):
+    """A model's config with a class branch of ``n_classes`` (and the
+    reference's loss and class weights for it)."""
+    return dict(config.to_dict(), n_classes=n_classes, train_loss_weights=(1, 0.2, 1),
+                train_class_weights=(1,) * (n_classes + 1))
+
+
+def grafted(Model, Config, name, n_classes, dev):
+    """``models/examples/<name>`` with a seeded class branch of
+    ``n_classes`` grafted on (the model's seeded initialisation for it, the
+    demo's trained weights for everything else) on ``dev``, and the demo."""
+    demo = Model(None, name, "models/examples", device=dev)
+    m = Model(Config(**multiclass_config(demo.config, n_classes)), basedir=None, device=dev)
+    missing, unexpected = m.net.load_state_dict(demo.net.state_dict(), strict=False)
+    check(not unexpected and missing and all("class" in k for k in missing),
+          f"graft: missing {missing}, unexpected {unexpected}")
+    m.thresholds = demo.thresholds
+    return m, demo
+
+
+def on_cpu(model, Model, inference_dtype=None):
+    """The same model (config, weights, thresholds) on the CPU (float32
+    convs unless ``inference_dtype`` says "bfloat16": the plain convs in the
+    kernel's types)."""
+    m = Model(model.config, basedir=None, device="cpu", inference_dtype=inference_dtype)
+    m.net.load_state_dict({k: v.cpu() for k, v in model.net.state_dict().items()})
+    m.thresholds = model.thresholds
+    return m
+
+
+def class_rows_at(model, img, points):
+    """The dense class map of ``model.predict`` (on its device) at the
+    survivors' ``points`` (full-resolution pixels)."""
+    pc = model._predict(img)[2]
+    g = torch.tensor(model.config.grid, device=pc.device)
+    return pc[tuple((torch.from_numpy(np.asarray(points)).to(pc.device).long() // g).t())]
+
+
+def shared_candidates(model, cpu, img):
+    """The card's candidates of ``img`` through the card's and the CPU's NMS,
+    raster and class rows: labels and every key must be equal."""
+    prob, dist, pc, points = model._predict_sparse(img)
+    lab_g, det_g = model._instances_from_prediction(img.shape[:model.config.n_dim], prob, dist,
+                                                    points, pc)
+    lab_c, det_c = cpu._instances_from_prediction(img.shape[:model.config.n_dim], prob.cpu(),
+                                                  dist.cpu(), points.cpu(), pc.cpu())
+    check(np.array_equal(lab_g, lab_c), "the same candidates: labels, card != CPU")
+    for k in ("points", "prob", "class_prob", "class_id"):
+        check(np.array_equal(det_g[k], det_c[k]), f"the same candidates: {k}, card != CPU")
+    return len(prob), len(det_c["prob"])
+
+
+def class_logits(pc):
+    """The class logits of softmax maps ``pc`` (..., C), centred over the
+    classes (log p minus its mean: the logits up to their shared offset),
+    and where every class's probability is above 0 (elsewhere the log is
+    not defined)."""
+    ok = (pc > 0).all(-1)
+    lg = np.log(np.where(pc > 0, pc, 1.0).astype(np.float64))
+    return lg - lg.mean(-1, keepdims=True), ok
+
+
+def class_maps_vs_cpu(model, cpu, img):
+    """Card against CPU, both bf16 (the kernel and its plain twin). The
+    class head is a linear head as the dist head is, so its logits get the
+    dist's rule of (d): their largest difference relative to max(1, their
+    largest magnitude) (the softmax, in f32 on both sides, amplifies a
+    logit's bf16 rounding by up to p (1 - p) per unit); returns that, the
+    class maps' largest difference, the pixels left out (a probability
+    of 0), and the CPU survivors whose class_id the card's map would give
+    otherwise, with their top-two logit margins on the CPU."""
+    pc_g, pc_c = model.predict(img)[2], cpu.predict(img)[2]
+    (zg, okg), (zc, okc) = class_logits(pc_g), class_logits(pc_c)
+    ok = okg & okc
+    e_z = np.abs(zg - zc)[ok].max()
+    e_rel = float(e_z / max(1.0, np.abs(zc[ok]).max()))
+    det = cpu.predict_instances(img)[1]
+    at = tuple((det["points"] // np.array(cpu.config.grid)).T)
+    flip = np.argmax(pc_g[at], -1) != det["class_id"]
+    top2 = np.sort(zc[at], -1)[:, -2:]
+    return (e_rel, float(e_z), float(np.abs(pc_g - pc_c).max()), int((~ok).sum()),
+            int(flip.sum()), (top2[:, 1] - top2[:, 0])[flip], len(det["prob"]))
+
+
+def he_field(shape, seed, n_classes):
+    """A three-channel (H&E-like) synthetic field of the benchmark's nuclei,
+    each nucleus given a seeded class 1..n_classes that shades its second
+    channel: (image (H, W, 3) float32, labels, {label: class})."""
+    from scipy.ndimage import gaussian_filter
+    img, lbl = synthetic_nuclei(shape, seed)
+    ids = np.arange(1, int(lbl.max()) + 1)
+    cls = np.random.RandomState(seed + 1).randint(1, n_classes + 1, len(ids))
+    shade = gaussian_filter(np.concatenate([[0], cls]).astype(np.float32)[lbl] / n_classes, 1.5)
+    x = np.stack([img, img * shade, 1 - img], -1).astype(np.float32)
+    return x, lbl, {int(i): int(c) for i, c in zip(ids, cls)}
+
+
+def train_step_vs_cpu(dev, Model, cfg, make_data, tag):
+    """One fixed host-built batch (class maps included), the same seeded
+    weights, TF32 off: the card's targets, loss, prob_class_loss, metrics
+    and gradients against the CPU port's."""
+    out = []
+    for device in (dev, "cpu"):
+        np.random.seed(17)
+        (x,), targets = make_data(device)[0]
+        m = Model(cfg, name=f"{tag}_cmp", basedir=None, device=device)
+        m.prepare_for_training()
+        batch = m._put_batch(dict(zip(("x", "prob", "dist", "prob_class"), (x, *targets))))
+        loss, metrics = m._loss_and_metrics(batch)
+        loss.backward()
+        out.append(((x, *targets), {k: float(v) for k, v in metrics.items()},
+                    {k: p.grad.cpu() for k, p in m.net.named_parameters()}))
+    (tg, mg, gg), (tc, mc, gc) = out
+    check(all(np.array_equal(a, b) for a, b in zip(tg, tc)),
+          f"({tag}) host targets (class maps included): card != CPU")
+    e_met = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-30) for k in mc)
+    check(e_met <= METRIC_RTOL, f"({tag}) loss / metrics: card vs CPU rel {e_met}: {mg} {mc}")
+    e_grad = max(((gg[k] - gc[k]).abs().max() / gc[k].abs().max().clamp_min(1e-30)).item()
+                 for k in gc)
+    check(e_grad <= GRAD_TOL, f"({tag}) gradients: card vs CPU rel {e_grad}")
+    return (f"targets equal (class maps {tuple(tc[3].shape)}, {int((tc[3] < 0).any(-1).sum())} "
+            f"ignored pixels), loss {mg['loss']:.6f} vs {mc['loss']:.6f}, prob_class_loss "
+            f"{mg['prob_class_loss']:.6f} vs {mc['prob_class_loss']:.6f}, metrics max rel diff "
+            f"{e_met:.1e}, gradients max rel diff {e_grad:.1e} over {len(gc)} parameters")
+
+
+def phase_p(dev, kernels, conv, matching, StarDist2D, Config2D):
+    """Multiclass 2D: the full-width forward with three input channels and
+    six classes, training, and serving a class branch grafted on 2D_demo."""
+    import shutil
+    import tempfile
+    from stardist_torch.models.model2d import StarDistData2D
+    from stardist_torch.models.unet import StarDistNet
+    net = StarDistNet(Config2D(**MC_CONFIG), dtype=torch.bfloat16)
+    net.init_weights(torch.Generator().manual_seed(0))
+    net.to(dev)
+    C = MC_CONFIG["n_channel_in"]
+    x = torch.rand(FWD_SIZE, FWD_SIZE, C, generator=torch.Generator().manual_seed(3)).to(dev)
+    out, out_p = net(x), net(x, plain=True)
+    torch.cuda.synchronize()
+    n, ncls = FWD_SIZE // 2, MC_CONFIG["n_classes"] + 1
+    check(tuple(out[2].shape) == (ncls, n, n) and tuple(out[1].shape) == (32, n, n),
+          "(p) forward shapes")
+    check(all(bool(torch.isfinite(t).all()) for t in out + out_p), "(p) non-finite forward output")
+    e_prob = (out[0] - out_p[0]).abs().max().item()
+    e_dist = ((out[1] - out_p[1]).abs().max() / out_p[1].abs().max().clamp_min(1.0)).item()
+    e_pc = (out[2] - out_p[2]).abs().max().item()
+    check(max(e_prob, e_dist, e_pc) < FWD_TOL,
+          f"(p) kernel forward vs plain: prob {e_prob}, dist {e_dist}, prob_class {e_pc}")
+    del out, out_p
+    t_k, t_p = cuda_ms(lambda: net(x)), cuda_ms(lambda: net(x, plain=True))
+    first, fc = net.conv_blocks()[0], net.feat_class
+    check(first.weight.shape[-2] == C and fc is not None, "(p) the two new conv layers")
+    rows, tot = conv_layers_vs_plain(net, x, dev, conv.conv3x3_hwc, conv.conv3x3_hwc_plain,
+                                     only=(first, fc))
+    conv_report("p", f"conv at the C = {C} first layer and the class feature conv", rows, tot)
+    print(f"(p) full-width multiclass forward {FWD_SIZE}^2 x {C} (Config2D({MC_CONFIG}), seeded "
+          f"weights): kernel {t_k:.2f} ms, plain {t_p:.2f} ms; prob max abs diff {e_prob:.2e}, "
+          f"dist max rel diff {e_dist:.2e}, prob_class max abs diff {e_pc:.2e}", flush=True)
+    del net, x
+    torch.cuda.empty_cache()
+
+    n_f, side = TRAIN_FIELDS
+    fields = [he_field((side, side), 1300 + i, MC_CONFIG["n_classes"]) for i in range(n_f)]
+    X, Y, CL = ([f[k] for f in fields] for k in range(3))
+    cfg = Config2D(**MC_CONFIG, train_tensorboard=False)
+    os.makedirs("build", exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_multiclass_", dir="build")
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    try:
+        set_tf32(False)
+
+        def make_data(device):
+            return StarDistData2D(X, Y, batch_size=cfg.train_batch_size, n_rays=cfg.n_rays,
+                                  length=1, n_classes=cfg.n_classes, classes=CL,
+                                  patch_size=cfg.train_patch_size, grid=cfg.grid,
+                                  foreground_prob=cfg.train_foreground_only, device=device)
+        print(f"(p) multiclass training step at {cfg.train_patch_size} x {cfg.train_batch_size}, "
+              f"{n_f} three-channel fields of {side}^2, card vs CPU (TF32 off): "
+              f"{train_step_vs_cpu(dev, StarDist2D, cfg, make_data, 'p')}", flush=True)
+        m = StarDist2D(cfg, name="p_train", basedir=workdir, device=dev)
+        marks = StageMarks()
+        m.step_marks = marks
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        h = m.train(X, Y, classes=CL, validation_data=(X[:2], Y[:2], CL[:2]), seed=23,
+                    epochs=MC_TRAIN_EPOCHS, steps_per_epoch=MC_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        m.step_marks = None
+        losses, lc = np.asarray(h.steps["loss"]), np.asarray(h.steps["prob_class_loss"])
+        n_steps = MC_TRAIN_EPOCHS * MC_TRAIN_STEPS
+        check(len(lc) == n_steps and np.isfinite(losses).all() and np.isfinite(lc).all()
+              and np.isfinite(h.history["val_loss"]).all(), f"(p) losses not finite: {losses}")
+        check(lc[-5:].mean() < lc[:5].mean(),
+              f"(p) prob_class_loss did not fall: first 5 {lc[:5].mean()}, last 5 {lc[-5:].mean()}")
+        split, step_ms = marks.split()
+        print(f"(p) StarDist2D.train (multiclass, host targets) {MC_TRAIN_EPOCHS} x "
+              f"{MC_TRAIN_STEPS} steps: call {wall:.1f} s ({n_steps / wall:.2f} steps/s with "
+              f"validation, checkpoints and start-up), step {step_ms:.2f} ms median "
+              f"({1e3 / step_ms:.1f} steps/s); loss first 5 {losses[:5].mean():.4f}, last 5 "
+              f"{losses[-5:].mean():.4f}; prob_class_loss first 5 {lc[:5].mean():.4f}, last 5 "
+              f"{lc[-5:].mean():.4f}; val_prob_class_loss {h.history['val_prob_class_loss']}; "
+              f"split (median ms): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+              + f"; peak memory {peak:.2f} GiB", flush=True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    g, demo = grafted(StarDist2D, Config2D, "2D_demo", MC_CONFIG["n_classes"], dev)
+    img, lbl = synthetic_nuclei((E2E_SIZE, E2E_SIZE), seed=123)
+    lab_d, det_d = demo.predict_instances(img)
+    g.predict_instances(img)                            # warm-up
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    lab, det = g.predict_instances(img)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(kernels, g)
+    check(len(det["prob"]) > 0, "(p) no survivors")
+    check(np.array_equal(lab, lab_d), "(p) the grafted model's labels != 2D_demo's")
+    for k in ("points", "prob", "dist"):
+        check(np.array_equal(det[k], det_d[k]), f"(p) the grafted model's {k} != 2D_demo's")
+    rows = class_rows_at(g, img, det["points"]).cpu().numpy()
+    check(np.array_equal(det["class_prob"], rows), "(p) class_prob != the class map at the points")
+    check(np.array_equal(det["class_id"], np.argmax(rows, -1)), "(p) class_id != argmax")
+    lab_v, det_v = g.predict_instances_device(img)
+    lab_t, det_t = g.predict_instances_device(img, fetch=False)
+    check(np.array_equal(lab_v, lab) and all(np.array_equal(det_v[k], det[k])
+                                             for k in ("points", "class_prob", "class_id")),
+          "(p) predict_instances_device (fetch=True) != predict_instances")
+    check(lab_t.is_cuda and det_t["class_prob"].is_cuda and det_t["class_id"].is_cuda
+          and np.array_equal(det_t["class_prob"].cpu().numpy(), det["class_prob"])
+          and np.array_equal(det_t["class_id"].cpu().numpy(), det["class_id"]),
+          "(p) fetch=False: the class rows must stay on the card and equal fetch=True's")
+    walls = walls_ms({"2D_demo": lambda: demo.predict_instances(img),
+                      "multiclass": lambda: g.predict_instances(img)}, rounds=3)
+    img1, _ = synthetic_nuclei((CMP_SIZE, CMP_SIZE), seed=123)
+    cpu = on_cpu(g, StarDist2D)
+    n_cand, n_surv = shared_candidates(g, cpu, img1)
+    e_z, e_zabs, e_pc, n_out, n_flip, margins, n_cpu = class_maps_vs_cpu(
+        g, on_cpu(g, StarDist2D, "bfloat16"), img1)
+    check(e_z < FWD_TOL and np.all(margins <= 2 * e_zabs),
+          f"(p) class logits card vs CPU (bf16): rel {e_z}; class_id flips at logit margins "
+          f"{margins} (largest logit difference {e_zabs})")
+    e_pc32 = float(np.abs(g.predict(img1)[2] - cpu.predict(img1)[2]).max())
+    acc = matching(cpu.predict_instances(img1)[0], g.predict_instances(img1)[0],
+                   thresh=0.5).accuracy
+    check(acc >= 0.99, f"(p) {CMP_SIZE}^2 card vs CPU labels: matching accuracy {acc} < 0.99")
+    t = det["timings_s"]
+    classes = np.bincount(det["class_id"], minlength=MC_CONFIG["n_classes"] + 1).tolist()
+    print(f"(p) 2D_demo with a grafted {MC_CONFIG['n_classes']}-class branch, predict_instances "
+          f"{E2E_SIZE}^2 on the card: labels, points, prob, dist == 2D_demo's; class_prob == "
+          f"the dense class map at the {len(det['prob'])} survivors, class_id its argmax "
+          f"(per class {classes}); predict_instances_device == it, fetch=False's class rows on "
+          f"the card; wall {wall * 1e3:.1f} ms = forward {t['forward'] * 1e3:.1f} + extract "
+          f"{t['extract'] * 1e3:.1f} + nms {t['nms'] * 1e3:.1f} + raster "
+          f"{t['raster'] * 1e3:.1f} ms; launches {launches}; 3 rounds in turn, median "
+          f"(min-max): {walls}; {CMP_SIZE}^2 card vs CPU: the card's {n_cand} candidates "
+          f"through both: labels and class rows equal ({n_surv} survivors); against the CPU's "
+          f"bf16 plain path: class logits max rel diff {e_z:.2e} (abs {e_zabs:.3f}; {n_out} "
+          f"pixels with a probability of 0 left out), class maps max abs diff {e_pc:.2e} "
+          f"({e_pc32:.2e} against the CPU's f32 path); {n_flip} of the CPU's {n_cpu} survivors "
+          f"would take another class_id from the card's map (top-two logit margins "
+          f"{np.round(margins, 4).tolist()}); matching accuracy against the CPU's f32 path "
+          f"{acc:.4f}", flush=True)
+    return launches
+
+
+def phase_q(dev, conv, StarDist3D, Config3D):
+    """Multiclass 3D: a class branch grafted on 3D_demo, and a training step
+    and five steps at the upstream 3D notebook's configuration."""
+    from stardist_torch.models.model3d import StarDistData3D
+    from stardist_torch.rays3d import rays_from_json
+    g, demo = grafted(StarDist3D, Config3D, "3D_demo", MC3D_CLASSES, dev)
+    img, _ = synthetic_nuclei_3d(E2E3D_SHAPE, seed=3)
+    lab_d, det_d = demo.predict_instances(img)
+    torch.cuda.synchronize()
+    conv.KERNEL3D.launches = 0
+    t0 = time.perf_counter()
+    lab, det = g.predict_instances(img)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = conv.KERNEL3D.launches
+    check(launches == len(g.net.conv_blocks()),
+          f"(q) conv3d launches {launches} != {len(g.net.conv_blocks())} (class conv included)")
+    check(len(det["prob"]) > 0, "(q) no survivors")
+    check(np.array_equal(lab, lab_d) and np.array_equal(det["points"], det_d["points"]),
+          "(q) the grafted model's labels / points != 3D_demo's")
+    rows = class_rows_at(g, img, det["points"]).cpu().numpy()
+    check(np.array_equal(det["class_prob"], rows) and np.array_equal(det["class_id"],
+                                                                      np.argmax(rows, -1)),
+          "(q) class_prob / class_id != the class map at the survivors")
+    crop = img[tuple(slice(0, s) for s in CMP3D_SHAPE)]
+    n_cand, n_surv = shared_candidates(g, on_cpu(g, StarDist3D), crop)
+    cpu16 = on_cpu(g, StarDist3D, "bfloat16")
+    (zg, okg), (zc, okc) = (class_logits(m.predict(crop)[2]) for m in (g, cpu16))
+    ok = okg & okc
+    e_z = float(np.abs(zg - zc)[ok].max() / max(1.0, np.abs(zc[ok]).max()))
+    check(e_z < FWD_TOL, f"(q) class logits card vs CPU (bf16) at {CMP3D_SHAPE}: rel {e_z}")
+    t = det["timings_s"]
+    print(f"(q) 3D_demo with a grafted {MC3D_CLASSES}-class branch, predict_instances "
+          f"{'x'.join(map(str, E2E3D_SHAPE))}: labels and points == 3D_demo's, class_prob == "
+          f"the class map at the {len(det['prob'])} survivors, class_id its argmax; wall "
+          f"{wall * 1e3:.1f} ms [" + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in t.items())
+          + f" ms], conv3d launches {launches}; {'x'.join(map(str, CMP3D_SHAPE))} crop: the "
+          f"card's {n_cand} candidates through the card's and the CPU's NMS and raster: labels "
+          f"and class rows equal ({n_surv} survivors); class logits card vs CPU (both bf16) "
+          f"max rel diff {e_z:.2e}", flush=True)
+
+    n_v, shape = 4, TRAIN3D_FIELDS[1]
+    fields = [synthetic_nuclei_3d(shape, seed=1400 + i) for i in range(n_v)]
+    X, Y = [f[0] for f in fields], [f[1] for f in fields]
+    rng = np.random.RandomState(1450)
+    CL = [{int(i): int(rng.randint(1, MC3D_CLASSES + 1)) for i in range(1, int(y.max()) + 1)}
+          for y in Y]
+    cfg = train3d_config(Y[1:], "resnet", Config3D, n_classes=MC3D_CLASSES,
+                         train_loss_weights=(1, 0.2, 1),
+                         train_class_weights=(1,) * (MC3D_CLASSES + 1))
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    try:
+        set_tf32(False)
+
+        def make_data(device):
+            return StarDistData3D(X[1:], Y[1:], rays=rays_from_json(cfg.rays_json),
+                                  batch_size=cfg.train_batch_size, length=1,
+                                  n_classes=MC3D_CLASSES, classes=CL[1:],
+                                  patch_size=cfg.train_patch_size, grid=cfg.grid,
+                                  anisotropy=cfg.anisotropy,
+                                  foreground_prob=cfg.train_foreground_only, device=device)
+        step = train_step_vs_cpu(dev, StarDist3D, cfg, make_data, "q")
+        m = StarDist3D(cfg, name="q_train", basedir=None, device=dev)
+        t0 = time.perf_counter()
+        h = m.train(X[1:], Y[1:], classes=CL[1:], validation_data=(X[:1], Y[:1], CL[:1]),
+                    seed=33, epochs=1, steps_per_epoch=5)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    lc = np.asarray(h.steps["prob_class_loss"])
+    check(len(lc) == 5 and np.isfinite(h.steps["loss"]).all() and np.isfinite(lc).all()
+          and np.isfinite(h.history["val_prob_class_loss"]).all(),
+          f"(q) multiclass 3D training losses not finite: {h.steps}")
+    print(f"(q) multiclass 3D training (examples/3D/2_training.ipynb's configuration, ResNet, "
+          f"n_classes={MC3D_CLASSES}, grid {cfg.grid}, {cfg.train_patch_size} x "
+          f"{cfg.train_batch_size}): one step card vs CPU (TF32 off): {step}; StarDist3D.train "
+          f"1 x 5 steps on the card in {wall:.1f} s, prob_class_loss "
+          f"{np.round(lc, 4).tolist()}, val_prob_class_loss "
+          f"{h.history['val_prob_class_loss']}", flush=True)
+    return launches
+
+
+def phase_r(dev, kernels, matching, StarDist2D, Config2D, rt):
+    """predict_instances_big on an 8192^2 field against one call, then the
+    grafted multiclass 2D_demo block-wise."""
+    model = StarDist2D(None, "2D_demo", "models/examples", device=dev)
+    img, lbl = synthetic_nuclei((BIG_SIZE, BIG_SIZE), seed=555)
+    packings, draw = [], rt.draw
+
+    def spy(inputs, shape, pack32, *args, **kw):       # which packing each raster call ran
+        packings.append(bool(pack32))
+        return draw(inputs, shape, pack32, *args, **kw)
+    rt.draw = spy
+    try:
+        model.predict_instances(img[:BIG_MC[1], :BIG_MC[1]])          # warm-up
+        model._axes_tile_overlap("YX")     # the receptive field (two forwards), kept
+        torch.cuda.synchronize()
+        reset_launches(kernels)
+        packings.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        lab_b, det_b = model.predict_instances_big(img, "YX", **BIG_BLOCKS)
+        torch.cuda.synchronize()
+        wall_b = time.perf_counter() - t0
+        peak_b = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_blocks, pack_b = len(packings), sorted(set(packings))
+        launches = {name: k.launches for name, k in kernels.items()}
+        n_conv = len(model.net.conv_blocks())
+        check(launches["conv"] == n_conv * n_blocks and launches["pair"] > 0
+              and launches["raster"] == n_blocks,
+              f"(r) launches {launches} for {n_blocks} blocks of {n_conv} convs")
+        packings.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        lab_1, det_1 = model.predict_instances(img)
+        torch.cuda.synchronize()
+        wall_1 = time.perf_counter() - t0
+        peak_1 = torch.cuda.max_memory_allocated() / 2 ** 30
+        pack_1 = packings[-1]
+    finally:
+        rt.draw = draw
+    n_obj = len(det_b["prob"])
+    check(lab_b.shape == img.shape and int(lab_b.max()) == n_obj
+          and len(np.unique(lab_b)) == n_obj + 1, "(r) block-wise labels are not 1..n")
+    acc = matching(lab_1, lab_b, thresh=0.5).accuracy
+    check(acc >= 0.99, f"(r) block-wise vs one call: matching accuracy {acc} < 0.99")
+    ap = matching(lbl, lab_b, thresh=0.5).accuracy
+    print(f"(r) predict_instances_big {BIG_SIZE}^2 (2D_demo, {BIG_BLOCKS}): {n_blocks} blocks, "
+          f"{n_obj} objects ({int(lbl.max())} true, AP@0.5 {ap:.4f}), wall {wall_b:.2f} s, peak "
+          f"memory {peak_b:.2f} GiB, raster packing {['64-bit', '32-bit'][pack_b[0]]}"
+          f"{'' if len(pack_b) == 1 else ' and 64-bit'} per block; one predict_instances call "
+          f"on the field: {len(det_1['prob'])} objects, wall {wall_1:.2f} s, peak memory "
+          f"{peak_1:.2f} GiB, raster packing {'32-bit' if pack_1 else '64-bit'}; matching "
+          f"accuracy block-wise vs one call {acc:.4f}; launches (block-wise) {launches}",
+          flush=True)
+
+    g, _ = grafted(StarDist2D, Config2D, "2D_demo", MC_CONFIG["n_classes"], dev)
+    side, block = BIG_MC
+    img2, _ = synthetic_nuclei((side, side), seed=556)
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    lab_m, det_m = g.predict_instances_big(img2, "YX", block_size=block,
+                                           min_overlap=BIG_BLOCKS["min_overlap"],
+                                           context=BIG_BLOCKS["context"])
+    torch.cuda.synchronize()
+    wall_m = time.perf_counter() - t0
+    launches_m = {name: k.launches for name, k in kernels.items()}
+    n_m = len(det_m["prob"])
+    check(det_m["class_prob"].shape == (n_m, MC_CONFIG["n_classes"] + 1)
+          and det_m["class_id"].shape == (n_m,) and int(lab_m.max()) == n_m
+          and np.array_equal(det_m["class_id"], np.argmax(det_m["class_prob"], -1)),
+          "(r) multiclass block-wise: class rows != objects")
+    check(all(v > 0 for v in launches_m.values()), f"(r) multiclass launches {launches_m}")
+    print(f"(r) grafted multiclass 2D_demo, predict_instances_big {side}^2 with block_size "
+          f"{block}: {n_m} objects, class_prob {det_m['class_prob'].shape} and class_id "
+          f"{det_m['class_id'].shape} rows (one per object), wall {wall_m:.2f} s, launches "
+          f"{launches_m}", flush=True)
+    return {k: launches[k] + launches_m[k] for k in launches}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=ALL_PHASES,
@@ -1812,9 +2289,22 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "o" in phases:
         phase_o(dev, conv, matching, StarDist3D)
+        torch.cuda.empty_cache()
+    more = []                      # the new paths' launches, counted with the main path's
+    if "p" in phases:
+        more.append(phase_p(dev, kernels, conv, matching, StarDist2D, Config2D))
+        torch.cuda.empty_cache()
+    if "q" in phases:
+        more.append({"conv3d": phase_q(dev, conv, StarDist3D, Config3D)})
+        torch.cuda.empty_cache()
+    if "r" in phases:
+        more.append(phase_r(dev, kernels, matching, StarDist2D, Config2D, rt))
     if phases != set(ALL_PHASES):
         return 0
     launches["conv3d"] = launches3d
+    for counts in more:
+        for k, v in counts.items():
+            launches[k] += v
 
     def conv_row(name, source, replaces, n, tot):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -1,16 +1,18 @@
-"""stardist_torch — StarDist 2D and 3D instance prediction, and 2D training,
-in PyTorch, with hand-written CUDA kernels for Hopper (sm_90a).
+"""stardist_torch — StarDist 2D and 3D instance prediction and training in
+PyTorch, with hand-written CUDA kernels for Hopper (sm_90a).
 
 The port of ``stardist_tpu``'s prediction path: ``StarDist2D`` and
 ``StarDist3D.predict_instances`` (normalize -> U-Net or, in 3D, ResNet
 forward -> candidate extraction -> greedy star-polygon / star-polyhedron NMS
--> label rasterization) and ``predict_instances_device``; of its training,
-``StarDist2D.train`` and ``StarDist3D.train`` (targets built on the model's
-device, float32 autograd, Adam; weight files the JAX package reads); and of
-the threshold search. The U-Net's 3x3 and 3x3x3 convolutions, the 2D NMS
-pair-overlap estimator and the 2D label raster run as CUDA kernels on CUDA
-tensors (``stardist_torch/csrc``) and as their plain PyTorch versions on
-CPU tensors.
+-> label rasterization), ``predict_instances_device`` and the block-wise
+``predict_instances_big`` (:mod:`.big`); of its training, ``StarDist2D.train``
+and ``StarDist3D.train`` (targets built on the model's device, float32
+autograd, Adam; weight files the JAX package reads); of the threshold
+search; and of multiclass models (``n_classes``) in all of these. The
+U-Net's 3x3 and 3x3x3 convolutions, the 2D NMS pair-overlap estimator and
+the 2D label raster run as CUDA kernels on CUDA tensors
+(``stardist_torch/csrc``) and as their plain PyTorch versions on CPU
+tensors.
 
 This package imports torch, numpy and scipy only.
 """
@@ -22,10 +24,12 @@ from .geometry import (dist_to_coord3D, export_to_obj_file3D, polyhedron_to_labe
                        relabel_image_stardist3D, star_dist3D)
 from .rays3d import (Rays_Base, Rays_Cartesian, Rays_Explicit, Rays_GoldenSpiral, Rays_Octo,
                      Rays_SubDivide, Rays_Tetra, rays_from_json, reorder_faces)
+from .utils import edt_prob, mask_to_categorical
 
 __all__ = ["__version__", "matching", "matching_dataset", "Config2D", "Config3D",
            "StarDist2D", "StarDist3D", "non_maximum_suppression_3d",
            "non_maximum_suppression_3d_sparse", "dist_to_coord3D", "export_to_obj_file3D",
            "polyhedron_to_label", "relabel_image_stardist3D", "star_dist3D", "Rays_Base",
            "Rays_Cartesian", "Rays_Explicit", "Rays_GoldenSpiral", "Rays_Octo",
-           "Rays_SubDivide", "Rays_Tetra", "rays_from_json", "reorder_faces"]
+           "Rays_SubDivide", "Rays_Tetra", "rays_from_json", "reorder_faces", "edt_prob",
+           "mask_to_categorical"]

@@ -50,9 +50,9 @@ from .unet import StarDistNet
 from .weights import load_flax_checkpoint, params_from_flax, save_flax_checkpoint
 
 INIT_SEED = 42           # a fresh model's weights, as the reference's
-Thresholds = namedtuple("Thresholds", ("prob", "nms"))
 METRICS = ("loss", "prob_loss", "dist_loss", "prob_kld", "dist_relevant_mae",
            "dist_relevant_mse", "dist_dist_iou_metric")
+METRICS_MULTICLASS = METRICS + ("prob_class_loss",)
 
 
 class RollingSequence:
@@ -280,6 +280,19 @@ class StarDistPadAndCropResizer:
         return np.where(np.all(points < bounds, 1))
 
 
+def _class_details(prob_class, fetch=True):
+    """The details' ``class_prob`` (the survivors' class rows) and
+    ``class_id`` (their argmax, the first class on ties) of a multiclass
+    prediction (reference model2d.py:380-382): numpy with ``fetch``, else
+    tensors where ``prob_class`` is; nothing without a class map."""
+    if prob_class is None:
+        return {}
+    if not fetch:
+        return dict(class_prob=prob_class, class_id=torch.argmax(prob_class, dim=-1))
+    prob_class = prob_class.cpu().numpy()
+    return dict(class_prob=prob_class, class_id=np.argmax(prob_class, axis=-1))
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -312,7 +325,7 @@ class StarDistBase:
     default on CUDA: the conv kernel's type) or "float32" (the default on
     CPU); see :meth:`set_inference_precision`."""
 
-    def __init__(self, config=None, name=None, basedir=".", device="cuda",
+    def __init__(self, config=None, name=None, basedir=".", *, device="cuda",
                  inference_dtype=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -366,10 +379,21 @@ class StarDistBase:
                 pass
         prob = threshs.get("prob")
         nms = threshs.get("nms")
-        self.thresholds = Thresholds(
-            prob=prob if prob is not None and 0 < prob < 1 else 0.5,
-            nms=nms if nms is not None and 0 < nms < 1 else 0.4)
+        self.thresholds = dict(prob=prob if prob is not None and 0 < prob < 1 else 0.5,
+                               nms=nms if nms is not None and 0 < nms < 1 else 0.4)
         self.net.to(self.device)
+
+    @property
+    def thresholds(self):
+        """The default (prob, nms) thresholds, a namedtuple ``Thresholds``."""
+        return self._thresholds
+
+    @thresholds.setter
+    def thresholds(self, d):
+        """A dict or a namedtuple is stored as a namedtuple of its keys, as
+        the reference stores it (base.py:361-366)."""
+        d = d._asdict() if hasattr(d, "_asdict") else dict(d)
+        self._thresholds = namedtuple("Thresholds", d.keys())(*d.values())
 
     def set_inference_precision(self, dtype):
         """``dtype``: None or "float32" (full precision) or "bfloat16"
@@ -449,13 +473,20 @@ class StarDistBase:
         self._targets_fn = self._device_targets_fn()
         self._model_prepared = True
 
+    def _metric_names(self):
+        """The training metrics in the order of the reference's dict (the
+        class loss last for a multiclass model)."""
+        return METRICS_MULTICLASS if self._is_multiclass() else METRICS
+
     def _loss_and_metrics(self, batch, generator=None):
         """(loss, metrics dict) of a target batch ``{"x", "prob", "dist"}``
-        on the device; the metrics are computed without autograd."""
+        (and ``"prob_class"`` for a multiclass model) on the device; the
+        metrics are computed without autograd."""
         cfg = self.config
         w = tuple(cfg.train_loss_weights)
         n_rays = cfg.n_rays
-        prob_pred, dist_pred = self.net.train_forward(batch["x"], generator)
+        outs = self.net.train_forward(batch["x"], generator)
+        prob_pred, dist_pred = outs[:2]
         prob_true, dist_true = batch["prob"][..., 0], batch["dist"][..., :n_rays]
         dist_mask = batch["dist"][..., n_rays:]
         lp = L.prob_loss(prob_true, prob_pred[..., 0])
@@ -469,6 +500,11 @@ class StarDistBase:
                        "dist_relevant_mae": L.relevant_mae(dist_true, dist_mask, d),
                        "dist_relevant_mse": L.relevant_mse(dist_true, dist_mask, d),
                        "dist_dist_iou_metric": L.dist_iou_metric(dist_true, dist_mask, d)}
+        if self._is_multiclass():
+            lc = L.class_loss(batch["prob_class"], outs[2], tuple(cfg.train_class_weights))
+            loss = loss + w[2] * lc
+            metrics["loss"] = loss.detach()
+            metrics["prob_class_loss"] = lc.detach()
         return loss, metrics
 
     def _put_batch(self, batch):
@@ -480,7 +516,8 @@ class StarDistBase:
 
     def _train_step(self, batch, generator=None, marks=None):
         """One update from a device batch (raw: targets built first) ->
-        the metrics as one tensor on the device, in the order of METRICS.
+        the metrics as one tensor on the device, in the order of
+        :meth:`_metric_names`.
         ``marks(stage)``, where given, is called as each stage is issued."""
         if "y" in batch:
             batch = self._targets_fn(batch)
@@ -494,7 +531,7 @@ class StarDistBase:
         self.optimizer.step()
         if marks is not None:
             marks("optimizer")
-        return torch.stack([metrics[k] for k in METRICS])
+        return torch.stack([metrics[k] for k in self._metric_names()])
 
     def _set_lr(self, lr):
         for group in self.optimizer.param_groups:
@@ -632,12 +669,14 @@ class StarDistBase:
         its middle z-slice."""
         x = val_batch["x"][:n_images]
         preds = [self.net(xi) for xi in x]
-        prob_p = torch.stack([p for p, _ in preds])[..., None]
-        dist_p = torch.stack([d.movedim(0, -1) for _, d in preds])
+        prob_p = torch.stack([p[0] for p in preds])[..., None]
+        dist_p = torch.stack([p[1].movedim(0, -1) for p in preds])
         n_rays = self.config.n_rays
         k = n_rays // min(3, n_rays)
         groups = {"input": x[..., :1], "prob/true": val_batch["prob"][:n_images, ..., :1],
                   "prob/pred": prob_p, "dist/pred": dist_p[..., 0:k * min(3, n_rays):k]}
+        if self._is_multiclass():                            # class 1's probability
+            groups["class/pred"] = torch.stack([p[2][1] for p in preds])[..., None]
         for name, g in groups.items():
             g = g.float().cpu().numpy()
             if g.ndim == 5:                                   # (B, Z, Y, X, C): the middle z
@@ -672,9 +711,10 @@ class StarDistBase:
                     marks("upload")
                 steps.append(self._train_step(batch, generator, marks))
             per_step = torch.stack(steps).cpu().numpy()           # the epoch's one readback
-            for j, k in enumerate(METRICS):
+            names = self._metric_names()
+            for j, k in enumerate(names):
                 history.steps.setdefault(k, []).extend(per_step[:, j].tolist())
-            logs = {k: float(np.mean(per_step[:, j])) for j, k in enumerate(METRICS)}
+            logs = {k: float(np.mean(per_step[:, j])) for j, k in enumerate(names)}
             logs["lr"] = lr
             if val_batch is not None:
                 with torch.no_grad():
@@ -843,9 +883,11 @@ class StarDistBase:
         return tuple(out)
 
     @staticmethod
-    def _extract(prob, dist, prob_thresh, b_key, max_candidates=None):
+    def _extract(prob, dist, prob_thresh, b_key, max_candidates=None, prob_class=None):
         """Candidates above ``prob_thresh`` and inside the border: (prob (K,),
-        dist (K, R) clamped at 1e-3, points (K, n_dim) in output-grid units).
+        dist (K, R) clamped at 1e-3, points (K, n_dim) in output-grid units),
+        and with a class map ``prob_class`` (C, *sp) its candidates' rows
+        (K, C), gathered as the dist rows are (reference base.py:1160-1167).
 
         The list comes in the reference's ``lax.top_k`` order: descending
         prob, ties in ascending flat index. The NMS then sorts it with
@@ -879,14 +921,18 @@ class StarDistBase:
             coords.append(rest % s)
             rest = rest // s
         points = torch.stack(coords[::-1], dim=1)
-        return vals, d, points
+        if prob_class is None:
+            return vals, d, points
+        return vals, d, points, prob_class.reshape(prob_class.shape[0], -1)[:, idx].t()
 
     def predict_sparse(self, img, prob_thresh=None, axes=None, normalizer=None,
                        n_tiles=None, show_tile_progress=True, b=2, max_candidates=None,
                        device_dist=False):
         """Sparse prediction (reference base.py:1375-1477): numpy (prob (K,)
         float32, dist (K, R) float32, points (K, n_dim) int64), points in
-        full-resolution pixels; see :meth:`_predict_sparse`.
+        full-resolution pixels, and for a multiclass model (prob, dist,
+        prob_class (K, n_classes + 1) float32, points); see
+        :meth:`_predict_sparse`.
         ``show_tile_progress`` shows nothing, as in the reference;
         ``max_candidates`` keeps the top-K of each tile (of the padded
         image when it is one tile), with a warning when there were more, as
@@ -903,7 +949,9 @@ class StarDistBase:
                         n_tiles=None, b=2, timings=None, max_candidates=None,
                         fold_padding=True):
         """Sparse prediction: (prob (K,), dist (K, R), points (K, n_dim))
-        tensors on ``self.device``; points in full-resolution pixels.
+        tensors on ``self.device``; points in full-resolution pixels. A
+        multiclass model returns (prob, dist, prob_class (K, n_classes + 1),
+        points), the reference's order.
 
         ``img`` is a numpy image, or a pre-staged tensor on ``self.device``
         (see :meth:`_prestaged`). With ``n_tiles`` (one count per axis of
@@ -933,24 +981,25 @@ class StarDistBase:
                 s_src = [s_src[i] for i in sp]
                 s_dst = [s_dst[i] for i in sp]
                 t0 = time.perf_counter()
-                prob, dist = self.net(self._upload(tile))
+                outs = self.net(self._upload(tile))
                 _sync(self.device)
                 t1 = time.perf_counter()
                 b_key = tuple((s_s.start + (bb if s_d.start == 0 else 0),
                                (t_len - s_s.stop) + (bb if s_d.stop == sh else 0))
-                              for s_s, s_d, t_len, sh in zip(s_src, s_dst, prob.shape, out_sh))
-                vals, d, points = self._extract(prob, dist, float(prob_thresh), b_key,
-                                                max_candidates)
+                              for s_s, s_d, t_len, sh in zip(s_src, s_dst, outs[0].shape,
+                                                             out_sh))
+                vals, d, points, *pc = self._extract(outs[0], outs[1], float(prob_thresh), b_key,
+                                                     max_candidates, *outs[2:])
                 offset = torch.tensor([s_d.start - s_s.start for s_s, s_d in zip(s_src, s_dst)],
                                       device=self.device)
-                parts.append((vals, d, (points + offset) * grid))
+                parts.append((vals, d, (points + offset) * grid, *pc))
                 _sync(self.device)
                 t_fwd += t1 - t0
                 t_ext += time.perf_counter() - t1
             t1 = time.perf_counter()
-            vals, d, points = (torch.cat(t) for t in zip(*parts))
+            vals, d, points, *pc = (torch.cat(t) for t in zip(*parts))
             inside = torch.all(points < self._inside_bounds(axes_net, resizer), dim=1)
-            vals, d, points = vals[inside], d[inside], points[inside]
+            vals, d, points, pc = vals[inside], d[inside], points[inside], [c[inside] for c in pc]
             _sync(self.device)
             t_ext += time.perf_counter() - t1
         else:
@@ -960,20 +1009,21 @@ class StarDistBase:
                 b_key = (b if b is not None and not np.isscalar(b)
                          else ((-1, -1) if b is None else (b, b),) * len(self.config.grid))
             t0 = time.perf_counter()
-            prob, dist = self.net(self._upload(x))
+            outs = self.net(self._upload(x))
             _sync(self.device)
             t1 = time.perf_counter()
-            vals, d, points = self._extract(prob, dist, float(prob_thresh), b_key,
-                                            max_candidates)
+            vals, d, points, *pc = self._extract(outs[0], outs[1], float(prob_thresh), b_key,
+                                                 max_candidates, *outs[2:])
             points = points * grid[None]
             if not fold_padding and resizer is not None:
                 inside = torch.all(points < self._inside_bounds(axes_net, resizer), dim=1)
                 vals, d, points = vals[inside], d[inside], points[inside]
+                pc = [c[inside] for c in pc]
             _sync(self.device)
             t_fwd, t_ext = t1 - t0, time.perf_counter() - t1
         if timings is not None:
             timings.update(forward=t_fwd, extract=t_ext)
-        return vals, d, points
+        return (vals, d, *pc, points)
 
     def _inside_bounds(self, axes_net, resizer):
         """Per spatial axis, the end of the image within the padded input
@@ -984,8 +1034,9 @@ class StarDistBase:
     def predict(self, img, axes=None, normalizer=None, n_tiles=None, show_tile_progress=True):
         """Dense prediction (reference base.py:1325-1373): prob (sp/g...) and
         dist (sp/g..., R), numpy float32, on the grid of the network output
-        and cropped to the image; dist clamped at 1e-3. ``show_tile_progress``
-        is taken so that calls written for the reference run; it shows
+        and cropped to the image; dist clamped at 1e-3; a multiclass model
+        adds prob_class (sp/g..., n_classes + 1). ``show_tile_progress`` is
+        taken so that calls written for the reference run; it shows
         nothing, as in the reference."""
         return tuple(t.cpu().numpy() for t in self._predict(img, axes, normalizer, n_tiles))
 
@@ -997,7 +1048,9 @@ class StarDistBase:
             grid_dict = dict(zip(axes_net.replace("C", ""), self.config.grid))
             sh = [s // grid_dict.get(a, 1) for a, s in zip(axes_net, x.shape)]
             result = []
-            for n_ch in (1, self.config.n_rays):
+            n_classes = self.config.n_classes
+            extra = (n_classes + 1,) if n_classes is not None else ()
+            for n_ch in (1, self.config.n_rays) + extra:
                 sh[channel] = n_ch
                 result.append(torch.empty(sh, dtype=torch.float32, device=self.device))
             for tile, s_src, s_dst in self._tiles(x, axes_net, n_tiles):
@@ -1005,16 +1058,17 @@ class StarDistBase:
                     part[tuple(s_dst)] = part_tile[tuple(s_src)]
         else:
             result = self._forward(x)
-        prob, dist = (resizer.after(part, axes_net) for part in result)
+        prob, dist, *pc = (resizer.after(part, axes_net) for part in result)
         prob = prob.select(channel, 0)
         dist = torch.movedim(dist.clamp_min(1e-3), channel, -1)
-        return prob, dist
+        return (prob, dist, *(torch.movedim(c, channel, -1) for c in pc))
 
     def _forward(self, x):
         """Forward of one (sp..., C) numpy input -> channels-last tensors on
-        ``self.device`` (prob (sp'..., 1), dist (sp'..., R))."""
-        prob, dist = self.net(self._upload(x))
-        return prob[..., None], torch.movedim(dist, 0, -1)
+        ``self.device`` (prob (sp'..., 1), dist (sp'..., R), and prob_class
+        (sp'..., n_classes + 1) for a multiclass model)."""
+        prob, *rest = self.net(self._upload(x))
+        return (prob[..., None], *(torch.movedim(t, 0, -1) for t in rest))
 
     def predict_instances(self, img, axes=None, normalizer=None, sparse=True, prob_thresh=None,
                           nms_thresh=None, scale=None, n_tiles=None, show_tile_progress=True,
@@ -1064,25 +1118,125 @@ class StarDistBase:
         if sparse:
             predict_kwargs.setdefault("b", b)
             fold_padding = bool(predict_kwargs.pop("device_dist", True))
-            prob, dist, points = self._predict_sparse(img, prob_thresh, axes, normalizer,
-                                                      n_tiles, timings=timings,
-                                                      fold_padding=fold_padding, **predict_kwargs)
+            *pred, points = self._predict_sparse(img, prob_thresh, axes, normalizer, n_tiles,
+                                                 timings=timings, fold_padding=fold_padding,
+                                                 **predict_kwargs)
         else:
             nms_kwargs.setdefault("b", b)
             t0 = time.perf_counter()
-            prob, dist = self._predict(img, axes, normalizer, n_tiles, show_tile_progress,
-                                       **predict_kwargs)
+            pred = self._predict(img, axes, normalizer, n_tiles, show_tile_progress,
+                                 **predict_kwargs)
             _sync(self.device)
             timings.update(forward=time.perf_counter() - t0)
             points = None
+        prob, dist, *pc = pred
         res = self._instances_from_prediction(
-            shape_inst, prob, dist, points, prob_thresh=prob_thresh, nms_thresh=nms_thresh,
+            shape_inst, prob, dist, points, *pc, prob_thresh=prob_thresh, nms_thresh=nms_thresh,
             scale=scale, return_labels=return_labels, timings=timings,
             render_kw=render_kw, **nms_kwargs)
         res[1]["timings_s"] = timings
         if return_predict:
-            return res, (prob.cpu().numpy(), dist.cpu().numpy())
+            return res, tuple(t.cpu().numpy() for t in pred)
         return res
+
+    def predict_instances_big(self, img, axes, block_size, min_overlap, context=None,
+                              labels_out=None, labels_out_dtype=np.int32, show_progress=True,
+                              **kwargs):
+        """Block-wise :meth:`predict_instances` of an image too big for one
+        call (reference base.py:1573-1656): ``img`` is cut into overlapping
+        blocks (``big.BlockND.cover``; ``block_size``, ``min_overlap`` and
+        ``context`` per axis of ``axes`` or one for all, made divisible by
+        the network stride; ``context`` defaults to the tile overlap);
+        each block is predicted on ``self.device``, its context cropped, and
+        only the objects it is responsible for are kept, relabelled after
+        the previous blocks' and written into ``labels_out`` (a new array
+        of ``labels_out_dtype`` by default, a given one of the model's
+        spatial shape, or none when ``labels_out=False``). ``kwargs`` go to
+        :meth:`predict_instances`; ``axes``, ``overlap_label``,
+        ``return_labels`` and ``return_predict`` are set here, with a
+        message where the caller set them. Returns (labels_out, details):
+        the object keys of ``big.OBJECT_KEYS`` (a multiclass model's
+        ``class_prob`` and ``class_id`` too) joined over the blocks in
+        block order, coordinates in the whole image; the other keys are the
+        first block's."""
+        from ..big import OBJECT_KEYS, BlockND, _grid_divisible
+        from ..matching import relabel_sequential
+
+        n = img.ndim
+        axes = axes_check_and_normalize(axes, length=n)
+        grid = self._axes_div_by(axes)
+        axes_out = self.config.axes.replace("C", "")
+        shape_dict = dict(zip(axes, img.shape))
+        shape_out = tuple(shape_dict[a] for a in axes_out)
+
+        if context is None:
+            context = self._axes_tile_overlap(axes)
+
+        if np.isscalar(block_size):
+            block_size = n * [block_size]
+        if np.isscalar(min_overlap):
+            min_overlap = n * [min_overlap]
+        if np.isscalar(context):
+            context = n * [context]
+        block_size, min_overlap, context = list(block_size), list(min_overlap), list(context)
+        if not n == len(block_size) == len(min_overlap) == len(context):
+            raise ValueError(f"block_size, min_overlap and context need {n} values (axes {axes})")
+
+        if "C" in axes:
+            i = axes_dict(axes)["C"]
+            block_size[i] = img.shape[i]
+            min_overlap[i] = context[i] = 0
+
+        block_size = tuple(_grid_divisible(g, v, name="block_size", verbose=False)
+                           for v, g in zip(block_size, grid))
+        min_overlap = tuple(_grid_divisible(g, v, name="min_overlap", verbose=False)
+                            for v, g in zip(min_overlap, grid))
+        context = tuple(_grid_divisible(g, v, name="context", verbose=False)
+                        for v, g in zip(context, grid))
+
+        print(f"effective: block_size={block_size}, min_overlap={min_overlap}, context={context}",
+              flush=True)
+
+        for a, c, o in zip(axes, context, self._axes_tile_overlap(axes)):
+            if c < o:
+                print(f"{a}: context of {c} is small, recommended to use at least {o}", flush=True)
+
+        blocks = BlockND.cover(img.shape, axes, block_size, min_overlap, context, grid)
+
+        if np.isscalar(labels_out) and bool(labels_out) is False:
+            labels_out = None
+        elif labels_out is None:
+            labels_out = np.zeros(shape_out, dtype=labels_out_dtype)
+        elif labels_out.shape != shape_out:
+            raise ValueError(f"'labels_out' must have shape {shape_out} (axes {axes_out}).")
+
+        polys_all = {}
+        label_offset = 1
+
+        kwargs_override = dict(axes=axes, overlap_label=None, return_labels=True,
+                               return_predict=False)
+        if show_progress:
+            kwargs_override["show_tile_progress"] = False
+        for k, v in kwargs_override.items():
+            if k in kwargs:
+                print(f"changing '{k}' from {kwargs[k]} to {v}", flush=True)
+            kwargs[k] = v
+
+        for block in blocks:
+            labels, polys = self.predict_instances(block.read(img, axes=axes), **kwargs)
+            labels = block.crop_context(labels, axes=axes_out)
+            labels, polys = block.filter_objects(labels, polys, axes=axes_out)
+            labels = relabel_sequential(labels, label_offset)[0]
+            if labels_out is not None:
+                block.write(labels_out, labels, axes=axes_out)
+            for k, v in polys.items():
+                polys_all.setdefault(k, []).append(v)
+            label_offset += len(polys["prob"])
+            del labels
+
+        polys_all = {k: (np.concatenate(v) if k in OBJECT_KEYS else v[0])
+                     for k, v in polys_all.items()}
+        return labels_out, polys_all
 
     def _shape_inst(self, img, axes):
         """The label image's shape: the spatial axes of ``img`` in the
@@ -1118,15 +1272,19 @@ class StarDistBase:
             print(f"scaling image by factors {scale} for axes {_axes}")
         return ndi.zoom(img, scale, order=1), scale_dict
 
-    def _instances_from_prediction(self, img_shape, prob, dist, points, prob_thresh=None,
-                                   nms_thresh=None, scale=None, return_labels=True,
-                                   timings=None, render_kw=None, **nms_kwargs):
+    def _instances_from_prediction(self, img_shape, prob, dist, points, prob_class=None,
+                                   prob_thresh=None, nms_thresh=None, scale=None,
+                                   return_labels=True, timings=None, render_kw=None,
+                                   **nms_kwargs):
         """NMS + rasterization -> (labels, details); reference
-        model2d.py:512-563 and model3d.py:314-359. ``points=None``: the
+        model2d.py:315-349 and model3d.py:315-353. ``points=None``: the
         dense maps (prob (sp...), dist (sp..., R) on ``self.device``), else
-        a candidate list. ``scale``, a dict of the image's axes, scales the
-        survivors back to the image (the model's ``_rescale``).
-        ``timings["raster"]`` includes the copy back to the host."""
+        a candidate list. ``prob_class`` (a multiclass model's class map
+        (sp..., C), or the candidates' rows (K, C)) follows the survivors:
+        by their indices into the candidate list, or at their grid points.
+        ``scale``, a dict of the image's axes, scales the survivors back to
+        the image (the model's ``_rescale``). ``timings["raster"]`` includes
+        the copy back to the host."""
         if prob_thresh is None:
             prob_thresh = self.thresholds.prob
         if nms_thresh is None:
@@ -1142,6 +1300,13 @@ class StarDistBase:
         else:
             nms = self._nms_sparse(dist, prob, points, nms_thresh, stats=counters, **nms_kwargs)
         points, probi, disti = nms[:3]
+        if prob_class is not None:
+            if len(nms) > 3:                             # sparse: the survivors' indices
+                prob_class = prob_class[nms[3]]
+            else:                                        # dense: at the survivors' grid points
+                g = torch.tensor(self.config.grid, device=points.device)
+                prob_class = prob_class[tuple((points // g).t())]
+            render_kw["prob_class"] = prob_class
         _sync(self.device)
         t1 = time.perf_counter()
         labels, details = self._render_survivors(img_shape, disti, points, probi,
@@ -1187,7 +1352,7 @@ class StarDistBase:
                     _opt_prob_thresh, _opt_measure, _opt_nms_thresh)
         opt_threshs = dict(prob=float(opt_prob_thresh), nms=float(opt_nms_thresh))
 
-        self.thresholds = Thresholds(**opt_threshs)
+        self.thresholds = opt_threshs
         print("Using optimized values: prob_thresh={prob:g}, nms_thresh={nms:g}.".format(
             prob=self.thresholds.prob, nms=self.thresholds.nms))
         if save_to_json and self.basedir is not None:
@@ -1263,5 +1428,5 @@ class StarDistBase:
         raise NotImplementedError()
 
     def _render_survivors(self, img_shape, disti, points, probi, return_labels=True,
-                          fetch=True):
+                          fetch=True, prob_class=None):
         raise NotImplementedError()

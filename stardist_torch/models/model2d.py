@@ -14,23 +14,22 @@ from ..ops.nms import nms_polygons
 from ..ops.edt import edt_prob_batch
 from ..ops.stardist2d import _default_max_dist, march_steps, star_dist2d
 from ..sample_patches import sample_patches
-from ..utils import _normalize_grid, as_tensor_on, clear_border, edt_prob
-from .base import StarDistBase, StarDistDataBase
+from ..utils import _normalize_grid, as_tensor_on, clear_border, edt_prob, mask_to_categorical
+from .base import StarDistBase, StarDistDataBase, _class_details
 
 
 class StarDistData2D(StarDistDataBase):
     """Training batches (reference model2d.py:27-120): random
     foreground-biased patches -> augmenter -> targets. ``__getitem__``
     builds the targets on the host (scipy EDT prob, the star distances on
-    ``device``: the card unless the caller passes ``device="cpu"``), as the
-    validation batch and shape completion need; :meth:`raw_item` leaves
+    ``device``: the card unless the caller passes ``device="cpu"``; with
+    ``n_classes`` the class maps of ``classes``), as the validation batch,
+    shape completion and multiclass training need; :meth:`raw_item` leaves
     them to the training step."""
 
     def __init__(self, X, Y, batch_size, n_rays, length, n_classes=None, classes=None,
                  patch_size=(256, 256), b=32, grid=(1, 1), shape_completion=False,
                  augmenter=None, foreground_prob=0, device="cuda", **kwargs):
-        if n_classes is not None:
-            raise NotImplementedError("multiclass training is not ported yet")
         super().__init__(X=X, Y=Y, n_rays=n_rays, grid=grid,
                          n_classes=n_classes, classes=classes,
                          batch_size=batch_size, patch_size=patch_size, length=length,
@@ -108,7 +107,24 @@ class StarDistData2D(StarDistDataBase):
 
         if has_neg_labels:
             prob[mask_neg_labels] = -1  # disables the loss at these pixels
-        return (X,), (prob, dist_and_mask)
+        if self.n_classes is None:
+            return (X,), (prob, dist_and_mask)
+        prob_class = class_targets(Y, idx, self.classes, self.n_classes, self.grid, self.b)
+        if has_neg_labels:
+            prob_class[mask_neg_labels] = -1
+        return (X,), (prob, dist_and_mask, prob_class)
+
+
+def class_targets(Y, idx, classes, n_classes, grid, crop=None):
+    """The class maps of label patches ``Y`` (of the images ``idx``, whose
+    ``classes`` they follow), cropped by ``crop`` and brought to the grid
+    by an order-0 zoom (reference model2d.py:109-116, model3d.py:92-99):
+    (B, *sp', n_classes + 1) float32."""
+    from scipy.ndimage import zoom
+    crop = (slice(None),) * len(grid) if crop is None else crop
+    prob_class = np.stack([mask_to_categorical(y[crop], n_classes, classes[k])
+                           for y, k in zip(Y, idx)])
+    return zoom(prob_class, (1,) + tuple(1 / g for g in grid) + (1,), order=0)
 
 
 class Config2D(BaseConfig):
@@ -313,7 +329,7 @@ class StarDist2D(StarDistBase):
         return nms_polygons(dist, as_tensor_on(points, dist.device), thresh=float(nms_thresh))
 
     def _render_survivors(self, img_shape, disti, points, probi, return_labels=True,
-                          fetch=True, rescale=(1, 1)):
+                          fetch=True, rescale=(1, 1), prob_class=None):
         """Rasterize the NMS survivors on their device, to uint16 when the
         label count fits (as the reference's device path ships it), and
         build the result dict. ``rescale`` (the model's ``_rescale``)
@@ -321,7 +337,9 @@ class StarDist2D(StarDistBase):
         to the image. With ``fetch`` the labels come back as int32 numpy and
         the dict holds numpy ``dist``, ``coord``, ``points`` (int32; f64
         when scaled) and ``prob``; without it the labels and ``dist``,
-        ``points``, ``prob`` stay tensors."""
+        ``points``, ``prob`` stay tensors. The survivors' class rows
+        ``prob_class`` add ``class_prob`` and ``class_id``
+        (:func:`.base._class_details`)."""
         scaled = tuple(rescale) != (1, 1)
         if scaled:
             points = points.double() * torch.tensor(rescale, dtype=torch.float64,
@@ -333,14 +351,16 @@ class StarDist2D(StarDistBase):
                                        scale_dist=rescale,
                                        out_dtype=torch.uint16 if small else torch.int32)
         if not fetch:
-            return labels, dict(dist=disti, points=points, prob=probi)
+            return labels, dict(dist=disti, points=points, prob=probi,
+                                **_class_details(prob_class, fetch))
         if isinstance(labels, torch.Tensor):
             labels = labels.cpu().numpy().astype(np.int32)
         disti, points, probi = (t.cpu().numpy() if isinstance(t, torch.Tensor) else t
                                 for t in (disti, points, probi))
         coord = dist_to_coord(disti, points, scale_dist=rescale)
         return labels, dict(dist=disti, coord=coord,
-                            points=points if scaled else points.astype(np.int32), prob=probi)
+                            points=points if scaled else points.astype(np.int32), prob=probi,
+                            **_class_details(prob_class, fetch))
 
     def predict_instances_device(self, img, axes=None, normalizer=None, prob_thresh=None,
                                  nms_thresh=None, b=2, verbose=False, fetch=True):
@@ -354,12 +374,11 @@ class StarDist2D(StarDistBase):
         ``self.device``: already normalized, ``(Y, X)`` or ``(Y, X, C)``,
         each spatial size divisible by the network stride.
 
-        Returns ``(labels, details)`` as :meth:`predict_instances` does;
-        with ``fetch=False`` the label image (uint16 when the label count
-        fits, else int32) and ``dist``/``points``/``prob`` stay tensors on
-        ``self.device``."""
-        if self.config.n_classes is not None:
-            raise NotImplementedError("multiclass prediction is not ported yet")
+        Returns ``(labels, details)`` as :meth:`predict_instances` does (a
+        multiclass model's with ``class_prob`` and ``class_id``); with
+        ``fetch=False`` the label image (uint16 when the label count fits,
+        else int32) and ``dist``/``points``/``prob`` (and
+        ``class_prob``/``class_id``) stay tensors on ``self.device``."""
         return self.predict_instances(img, axes, normalizer, prob_thresh=prob_thresh,
                                       nms_thresh=nms_thresh, verbose=verbose, b=b, fetch=fetch)
 
@@ -370,7 +389,7 @@ class StarDist2D(StarDistBase):
 
 def _as_batch_dict(batch_tuple):
     (x,), targets = batch_tuple
-    return {"x": x, "prob": targets[0], "dist": targets[1]}
+    return dict(zip(("x", "prob", "dist", "prob_class"), (x, *targets)))
 
 
 class _BatchDictAdapter:

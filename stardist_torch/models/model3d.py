@@ -17,8 +17,8 @@ from ..ops.stardist3d import _default_max_dist, march_steps, star_dist3d
 from ..rays3d import Rays_GoldenSpiral, rays_from_json
 from ..sample_patches import sample_patches
 from ..utils import _normalize_grid, as_tensor_on, edt_prob
-from .base import StarDistBase, StarDistDataBase
-from .model2d import _as_batch_dict, _BatchDictAdapter
+from .base import StarDistBase, StarDistDataBase, _class_details
+from .model2d import _as_batch_dict, _BatchDictAdapter, class_targets
 
 
 class StarDistData3D(StarDistDataBase):
@@ -26,15 +26,14 @@ class StarDistData3D(StarDistDataBase):
     foreground-biased patches -> augmenter -> targets. ``__getitem__``
     builds the targets on the host (scipy EDT prob with ``anisotropy`` at
     full resolution, then subsampled by the grid; the star distances on
-    ``device``: the card unless the caller passes ``device="cpu"``), as the
-    validation batch needs; :meth:`raw_item` leaves them to the training
-    step."""
+    ``device``: the card unless the caller passes ``device="cpu"``; with
+    ``n_classes`` the class maps of ``classes``), as the validation batch
+    and multiclass training need; :meth:`raw_item` leaves them to the
+    training step."""
 
     def __init__(self, X, Y, batch_size, rays, length, n_classes=None, classes=None,
                  patch_size=(128, 128, 128), grid=(1, 1, 1), anisotropy=None,
                  augmenter=None, foreground_prob=0, device="cuda", **kwargs):
-        if n_classes is not None:
-            raise NotImplementedError("multiclass training is not ported yet")
         super().__init__(X=X, Y=Y, n_rays=len(rays), grid=grid,
                          n_classes=n_classes, classes=classes,
                          batch_size=batch_size, patch_size=patch_size, length=length,
@@ -69,7 +68,7 @@ class StarDistData3D(StarDistDataBase):
         return raw
 
     def __getitem__(self, i):
-        _, X, Y = self._sample_batch(i)
+        idx, X, Y = self._sample_batch(i)
 
         mask_neg_labels = tuple(y[self.ss_grid[1:4]] < 0 for y in Y)
         has_neg_labels = any(m.any() for m in mask_neg_labels)
@@ -96,7 +95,12 @@ class StarDistData3D(StarDistDataBase):
 
         if has_neg_labels:
             prob[mask_neg_labels] = -1  # disables the loss at these voxels
-        return (X,), (prob, dist_and_mask)
+        if self.n_classes is None:
+            return (X,), (prob, dist_and_mask)
+        prob_class = class_targets(Y, idx, self.classes, self.n_classes, self.grid)
+        if has_neg_labels:
+            prob_class[mask_neg_labels] = -1
+        return (X,), (prob, dist_and_mask, prob_class)
 
 
 class Config3D(BaseConfig):
@@ -200,8 +204,7 @@ class StarDist3D(StarDistBase):
     (``config.json``, ``thresholds.json``, ``weights_best.h5``);
     ``StarDist3D(Config3D(...), name, basedir, device=...)`` builds one with
     seeded random weights (see ``net.init_weights``) and, with a
-    ``basedir``, writes its ``config.json``. Multiclass models are not
-    ported."""
+    ``basedir``, writes its ``config.json``."""
 
     @property
     def rays(self):
@@ -332,14 +335,15 @@ class StarDist3D(StarDistBase):
             scores=as_tensor_on(prob, dist.device), thresh=float(nms_thresh))
 
     def _render_survivors(self, img_shape, disti, points, probi, return_labels=True,
-                          fetch=True, rescale=(1, 1, 1), overlap_label=None):
+                          fetch=True, rescale=(1, 1, 1), overlap_label=None, prob_class=None):
         """Rasterize the NMS survivors on their device, relabel the volume
         sequentially there (keeping a negative ``overlap_label``) and build
         the result dict; reference model3d.py:372-405. ``rescale`` (the
         model's ``_rescale``) scales the centres (in f64, as the reference)
         and the rays back to the volume. With ``fetch`` the labels come back
         as int32 numpy and ``dist``, ``points``, ``prob`` as numpy; without
-        it they stay tensors."""
+        it they stay tensors. The survivors' class rows ``prob_class`` add
+        ``class_prob`` and ``class_id`` (:func:`.base._class_details`)."""
         rays = self.rays
         if tuple(rescale) != (1, 1, 1):
             points = points.double() * torch.tensor(rescale, dtype=torch.float64,
@@ -354,11 +358,11 @@ class StarDist3D(StarDistBase):
         details = dict(dist=disti, points=points, prob=probi, rays=rays,
                        rays_vertices=rays.vertices, rays_faces=rays.faces)
         if not fetch:
-            return labels, details
+            return labels, {**details, **_class_details(prob_class, fetch)}
         if labels is not None:
             labels = labels.cpu().numpy()
         details.update((k, details[k].cpu().numpy()) for k in ("dist", "points", "prob"))
-        return labels, details
+        return labels, {**details, **_class_details(prob_class, fetch)}
 
     def predict_instances_device(self, img, axes=None, normalizer=None, prob_thresh=None,
                                  nms_thresh=None, b=2, verbose=False, fetch=True):
@@ -371,11 +375,11 @@ class StarDist3D(StarDistBase):
         ``self.device``: already normalized, ``(Z, Y, X)`` or ``(Z, Y, X,
         C)``, each spatial size divisible by the network stride.
 
-        Returns ``(labels, details)`` as :meth:`predict_instances` does;
-        with ``fetch=False`` the label volume (int32) and
-        ``dist``/``points``/``prob`` stay tensors on ``self.device``."""
-        if self.config.n_classes is not None:
-            raise NotImplementedError("multiclass prediction is not ported yet")
+        Returns ``(labels, details)`` as :meth:`predict_instances` does (a
+        multiclass model's with ``class_prob`` and ``class_id``); with
+        ``fetch=False`` the label volume (int32) and
+        ``dist``/``points``/``prob`` (and ``class_prob``/``class_id``) stay
+        tensors on ``self.device``."""
         return self.predict_instances(img, axes, normalizer, prob_thresh=prob_thresh,
                                       nms_thresh=nms_thresh, verbose=verbose, b=b, fetch=fetch)
 

@@ -3,23 +3,27 @@ StarDistNet`` and its inference form ``models/unet_chw.py::chw_forward``).
 
 The U-Net: one walker of the topology, in the flax call order — grid
 pre-pooling convs, the csbdeep U-Net backbone (max-pool, nearest upsample,
-skip concat), the feature conv, the 1x1 heads — with two routes:
+skip concat), the feature conv, the 1x1 heads; with ``n_classes`` a second
+feature conv on the backbone's output and a 1x1 class head with a softmax
+(the reference's ``head_prob_class``) — with two routes:
 
 - inference (:meth:`StarDistNet.forward`): one unbatched channels-last
   image, ``(H, W, C)`` or ``(D, H, W, C)``, so that every 3x3 (3x3x3) conv
   reads and writes it without a transpose; the conv kernel on CUDA in
   bf16, the plain version otherwise; no autograd. Outputs as the
   reference's: ``prob (*sp')`` and ``dist (R, *sp')`` float32,
-  channel-major;
+  channel-major, and with ``n_classes`` ``prob_class (n_classes + 1,
+  *sp')`` float32;
 - training (:meth:`StarDistNet.train_forward`): a float32 batch
   ``(B, *sp, C)`` through ``F.conv2d`` / ``F.conv3d`` with autograd, and
-  the reference's dropout; outputs ``prob (B, *sp', 1)`` and ``dist (B,
-  *sp', R)``, as the reference's ``net.apply(..., train=True)``.
+  the reference's dropout; outputs ``prob (B, *sp', 1)``, ``dist (B,
+  *sp', R)`` and with ``n_classes`` ``prob_class (B, *sp', n_classes +
+  1)``, as the reference's ``net.apply(..., train=True)``.
 
 The ResNet (3D; the reference's ``backbone="resnet"``): a 7^3 and a 3^3 conv
 (no activation), ``resnet_n_blocks`` csbdeep residual blocks whose first
 conv and 1x1 projection shortcut are strided until the grid is reached
-(filters doubling at each stride), the feature conv, the heads. Its convs
+(filters doubling at each stride), the feature convs, the heads. Its convs
 are ``F.conv3d`` on ``(B, C, *sp)`` in both routes (the net's type for
 inference, float32 for training), as the reference runs them through XLA
 and never through its Pallas conv (``supports_chw`` excludes them); a
@@ -178,8 +182,8 @@ class StarDistNet(nn.Module):
         super().__init__()
         c = config
         self.n_dim = int(c.n_dim)
-        if c.n_classes is not None:
-            raise NotImplementedError("multiclass heads are not ported yet")
+        self.n_classes = None if c.n_classes is None else int(c.n_classes)
+        self.feat_class = None      # the class branch's feature conv (see _class_branch)
         self.backbone_kind = str(c.backbone).lower()
         self.grid = tuple(int(g) for g in c.grid)
         self.n_rays = int(c.n_rays)
@@ -196,6 +200,27 @@ class StarDistNet(nn.Module):
         self.head_dist = nn.Module()
         self.head_dist.weight = nn.Parameter(torch.zeros(ch, self.n_rays))
         self.head_dist.bias = nn.Parameter(torch.zeros(self.n_rays))
+        if self.n_classes is not None:
+            # the class branch: its own feature conv on the backbone's output
+            # (none when the net has no feature conv) and a 1x1 head
+            ch_class = self._class_branch(c)
+            self.head_prob_class = nn.Module()
+            self.head_prob_class.weight = nn.Parameter(torch.zeros(ch_class, self.n_classes + 1))
+            self.head_prob_class.bias = nn.Parameter(torch.zeros(self.n_classes + 1))
+
+    def _class_branch(self, c):
+        """Build ``feat_class``, the class branch's feature conv (a copy of
+        the feature conv's shape; none without a feature conv), and return
+        its output width."""
+        if self.n_feat <= 0:
+            return self.n_base
+        if self.backbone_kind == "resnet":
+            k = int(c.resnet_kernel_size[0])
+            self.feat_class = Conv(self.n_base, self.n_feat, k, self.n_dim, 1,
+                                   c.resnet_activation)
+        else:
+            self.feat_class = ConvBlock(self.n_base, self.n_feat, c.unet_activation, self.n_dim)
+        return self.n_feat
 
     def _build_unet(self, c):
         nd = self.n_dim
@@ -242,6 +267,7 @@ class StarDistNet(nn.Module):
                                  drop))
             ch = base * 2 ** max(0, n - 1)
 
+        self.n_base = ch
         self.n_feat = int(c.net_conv_after_unet)
         if self.n_feat > 0:
             top.append(ConvBlock(ch, self.n_feat, act, nd))
@@ -274,23 +300,26 @@ class StarDistNet(nn.Module):
         if tuple(pooled) != self.grid:
             raise ValueError(f"resnet_n_blocks = {c.resnet_n_blocks} cannot reach grid {self.grid}")
         self.blocks = nn.ModuleList(blocks)
+        self.n_base = ch
         self.n_feat = int(c.net_conv_after_resnet)
         self.feat = Conv(ch, self.n_feat, k[0], nd, 1, act) if self.n_feat > 0 else None
         return self.n_feat if self.n_feat > 0 else ch
 
     def conv_blocks(self):
-        """The convs of the conv kernel (the U-Net's); the ResNet has none."""
+        """The convs of the conv kernel (the U-Net's, the class branch's
+        feature conv last); the ResNet has none."""
         if self.backbone_kind == "resnet":
             return []
-        return list(self.top) + list(self.backbone)
+        fc = self.feat_class
+        return list(self.top) + list(self.backbone) + ([fc] if fc is not None else [])
 
     def resnet_convs(self):
         """The ResNet's convs as flax creates them: the stem, each block's
-        convs and shortcut, the feature conv."""
+        convs and shortcut, the feature conv, the class branch's."""
         convs = list(self.stem)
         for blk in self.blocks:
             convs += list(blk.convs) + ([blk.shortcut] if blk.shortcut is not None else [])
-        return convs + ([self.feat] if self.feat is not None else [])
+        return convs + [m for m in (self.feat, self.feat_class) if m is not None]
 
     @torch.no_grad()
     def init_weights(self, generator):
@@ -314,7 +343,7 @@ class StarDistNet(nn.Module):
 
         if self.backbone_kind == "resnet":
             for conv in self.resnet_convs():
-                if conv is self.feat:
+                if conv is self.feat or conv is self.feat_class:
                     glorot(conv.weight)
                 else:
                     trunc_normal(conv.weight, 2.0)
@@ -322,21 +351,26 @@ class StarDistNet(nn.Module):
         for blk in self.conv_blocks():
             glorot(blk.weight)
             blk.bias.zero_()
-        for head in (self.head_prob, self.head_dist):
+        for head in self._heads():
             trunc_normal(head.weight, 1.0)
             head.bias.zero_()
 
+    def _heads(self):
+        heads = [self.head_prob, self.head_dist]
+        return heads + ([self.head_prob_class] if self.n_classes is not None else [])
+
     def _resnet(self, h):
-        """The ResNet's features of (B, C, *sp) in h's type."""
+        """The ResNet's backbone output of (B, C, *sp) in h's type."""
         for conv in self.stem:
             h = conv(h)
         for blk in self.blocks:
             h = blk(h)
-        return self.feat(h) if self.feat is not None else h
+        return h
 
     def _walk(self, h, conv, pool, up, cat):
-        """The topology up to the features: ``conv(block, h)``, ``pool(h,
-        factors)``, ``up(h, factors)``, ``cat(upsampled, skip)``."""
+        """The U-Net's topology up to the backbone's output: ``conv(block,
+        h)``, ``pool(h, factors)``, ``up(h, factors)``, ``cat(upsampled,
+        skip)``."""
         top = iter(self.top)
         for p in self.prepools:
             for _ in range(self.n_conv):
@@ -356,7 +390,16 @@ class StarDistNet(nn.Module):
             h = cat(up(h, self.pool), skips[n])
             for _ in range(self.n_conv):
                 h = conv(next(bb), h)
-        return conv(next(top), h) if self.n_feat > 0 else h
+        return h
+
+    def _features(self, base, conv):
+        """(the heads' features, the class branch's or None) of the
+        backbone's output, ``conv(module, h)`` applying a feature conv."""
+        feat = self.top[-1] if self.backbone_kind == "unet" else self.feat
+        fc = self.feat_class
+        if self.n_feat <= 0:
+            return base, (base if self.n_classes is not None else None)
+        return conv(feat, base), (conv(fc, base) if fc is not None else None)
 
     def forward(self, x, plain=False):
         """Inference route: x (*sp, C_in) -> prob (*sp') f32, dist (R, *sp')
@@ -368,20 +411,27 @@ class StarDistNet(nn.Module):
         plain = plain or self.dtype == torch.float32
         with torch.no_grad():
             if self.backbone_kind == "resnet":
-                feat = self._resnet(x.to(self.dtype).movedim(-1, 0)[None])[0].movedim(0, -1)
+                def conv(mod, h):
+                    return mod(h.movedim(-1, 0)[None])[0].movedim(0, -1)
+                base = conv(self._resnet, x.to(self.dtype))
             else:
-                feat = self._walk(x.to(self.dtype), lambda blk, h: blk(h, plain), max_pool,
-                                  upsample, lambda a, b: torch.cat([a, b], dim=-1))
+                def conv(blk, h):
+                    return blk(h, plain)
+                base = self._walk(x.to(self.dtype), conv, max_pool, upsample,
+                                  lambda a, b: torch.cat([a, b], dim=-1))
+            feat, feat_c = self._features(base, conv)
             # fused 1+R head as one f32 channel contraction; the weights are
             # rounded to the activation type first, as the reference does
-            sp, C = feat.shape[:-1], feat.shape[-1]
-            k = torch.cat([self.head_prob.weight, self.head_dist.weight], dim=1)
-            k = k.to(feat.dtype).float()                                   # (C, 1+R)
-            b = torch.cat([self.head_prob.bias, self.head_dist.bias]).float()
-            y = torch.matmul(k.t(), feat.reshape(-1, C).float().t()) + b[:, None]
+            sp = feat.shape[:-1]
+            y = _head(feat, torch.cat([self.head_prob.weight, self.head_dist.weight], dim=1),
+                      torch.cat([self.head_prob.bias, self.head_dist.bias]))
             prob = torch.sigmoid(y[0]).view(sp)
             dist = y[1:].view(self.n_rays, *sp)
-        return prob, dist
+            if self.n_classes is None:
+                return prob, dist
+            pc = _head(feat_c, self.head_prob_class.weight, self.head_prob_class.bias)
+            prob_class = torch.softmax(pc, dim=0).view(self.n_classes + 1, *sp)
+        return prob, dist, prob_class
 
     def train_forward(self, x, generator=None):
         """Training route: x (B, *sp, C_in) float32 -> prob (B, *sp', 1),
@@ -400,12 +450,28 @@ class StarDistNet(nn.Module):
 
         h = x.float().movedim(-1, 1)                 # (B, C, *sp), channels-last in memory
         if self.backbone_kind == "resnet":
-            feat = self._resnet(h)
+            def conv(mod, h):
+                return mod(h)
+            base = self._resnet(h)
         else:
-            feat = self._walk(h, lambda blk, h: blk.train_forward(h, generator),
-                              lambda h, p: pool(h, p) if any(v > 1 for v in p) else h, up,
-                              lambda a, b: torch.cat([a, b], dim=1))
+            def conv(blk, h):
+                return blk.train_forward(h, generator)
+            base = self._walk(h, conv, lambda h, p: pool(h, p) if any(v > 1 for v in p) else h,
+                              up, lambda a, b: torch.cat([a, b], dim=1))
+        feat, feat_c = self._features(base, conv)
         feat = feat.movedim(1, -1)                   # (B, *sp', C)
         prob = torch.sigmoid(feat @ self.head_prob.weight + self.head_prob.bias)
         dist = feat @ self.head_dist.weight + self.head_dist.bias
-        return prob, dist
+        if self.n_classes is None:
+            return prob, dist
+        pc = feat_c.movedim(1, -1) @ self.head_prob_class.weight + self.head_prob_class.bias
+        return prob, dist, torch.softmax(pc, dim=-1)
+
+
+def _head(feat, w, b):
+    """A 1x1 head on channels-last features (*sp, C) as one f32 channel
+    contraction, channel-major out (Cout, n_pix); the weights rounded to the
+    features' type first, as the reference does."""
+    C = feat.shape[-1]
+    k = w.to(feat.dtype).float()                                  # (C, Cout)
+    return torch.matmul(k.t(), feat.reshape(-1, C).float().t()) + b.float()[:, None]

@@ -185,7 +185,9 @@ def params_from_flax(net, params):
     ``UNetBackbone_0/ConvBlock_j`` the backbone. ResNet: ``Conv_0`` (7^3)
     and ``Conv_1`` (3^3), ``ResNetBlock_b/Conv_k`` (the shortcut last),
     ``ConvBlock_0`` the feature conv. Then ``head_prob`` / ``head_dist``, the
-    1x1 heads. Conv kernels stay HWIO (3, 3, C, Cout) / DHWIO."""
+    1x1 heads; a multiclass net's class branch is the next top-level
+    ``ConvBlock`` (its feature conv, made after the heads) and
+    ``head_prob_class``. Conv kernels stay HWIO (3, 3, C, Cout) / DHWIO."""
     def arr(p):
         return torch.from_numpy(np.array(p, np.float32))
 
@@ -205,11 +207,19 @@ def params_from_flax(net, params):
         bb = params["UNetBackbone_0"]
         for j in range(len(net.backbone)):
             sd[f"backbone.{j}.weight"], sd[f"backbone.{j}.bias"] = conv(bb[f"ConvBlock_{j}"])
-    for head in ("head_prob", "head_dist"):
+        if net.feat_class is not None:
+            sd["feat_class.weight"], sd["feat_class.bias"] = conv(
+                params[f"ConvBlock_{len(net.top)}"])
+    for head in _head_names(net):
         k = np.array(params[head]["kernel"], np.float32)
         sd[f"{head}.weight"] = torch.from_numpy(k.reshape(k.shape[-2:]).copy())
         sd[f"{head}.bias"] = torch.from_numpy(np.array(params[head]["bias"], np.float32))
     return sd
+
+
+def _head_names(net):
+    return ("head_prob", "head_dist") + (("head_prob_class",) if net.n_classes is not None
+                                         else ())
 
 
 def _resnet_names(net):
@@ -222,6 +232,8 @@ def _resnet_names(net):
             out.append((f"blocks.{b}.shortcut", f"ResNetBlock_{b}/Conv_{len(blk.convs)}"))
     if net.feat is not None:
         out.append(("feat", "ConvBlock_0/Conv_0"))
+    if net.feat_class is not None:
+        out.append(("feat_class", "ConvBlock_1/Conv_0"))
     return out
 
 
@@ -229,21 +241,31 @@ def params_to_flax(net):
     """The flax parameter tree of ``net`` (numpy float32 leaves), in the
     order flax creates the modules (U-Net: the grid pre-pooling convs, the
     backbone, the feature conv; ResNet: the stem, the blocks, the feature
-    conv; then the heads); the inverse of :func:`params_from_flax`."""
+    conv; then the prob and dist heads, and a multiclass net's class
+    feature conv and class head); the inverse of :func:`params_from_flax`."""
     def arr(t):
         return t.detach().cpu().float().numpy().copy()
 
     def conv(blk):
         return {"Conv_0": {"kernel": arr(blk.weight), "bias": arr(blk.bias)}}
 
+    def head(name):
+        mod = getattr(net, name)
+        return {"kernel": arr(mod.weight).reshape((1,) * net.n_dim + tuple(mod.weight.shape)),
+                "bias": arr(mod.bias)}
+
+    fc = net.feat_class
     if net.backbone_kind == "resnet":
         params = {}
         sd = net.state_dict()
         for name, path in _resnet_names(net):
+            if name == "feat_class":
+                continue
             leaf = params
             for key in path.split("/"):
                 leaf = leaf.setdefault(key, {})
             leaf.update(kernel=arr(sd[f"{name}.weight"]), bias=arr(sd[f"{name}.bias"]))
+        n_top = 1
     else:
         n_pre = len(net.prepools) * net.n_conv
         params = {f"ConvBlock_{i}": conv(net.top[i]) for i in range(n_pre)}
@@ -251,10 +273,12 @@ def params_to_flax(net):
                                     for j, b in enumerate(net.backbone)}
         for i in range(n_pre, len(net.top)):
             params[f"ConvBlock_{i}"] = conv(net.top[i])
-    for head in ("head_prob", "head_dist"):
-        mod = getattr(net, head)
-        params[head] = {"kernel": arr(mod.weight).reshape((1,) * net.n_dim + tuple(mod.weight.shape)),
-                        "bias": arr(mod.bias)}
+        n_top = len(net.top)
+    params["head_prob"], params["head_dist"] = head("head_prob"), head("head_dist")
+    if net.n_classes is not None:
+        if fc is not None:
+            params[f"ConvBlock_{n_top}"] = conv(fc)
+        params["head_prob_class"] = head("head_prob_class")
     return params
 
 

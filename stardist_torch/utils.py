@@ -7,7 +7,7 @@ import datetime
 import struct
 import time
 import warnings
-from collections import namedtuple
+from collections import defaultdict, namedtuple
 from collections.abc import Iterable
 from pathlib import Path
 from zipfile import ZIP_DEFLATED, ZipFile
@@ -135,11 +135,24 @@ def sample_points(n_samples, mask, prob=None, b=2):
     return np.stack((points[0][ind], points[1][ind]), axis=-1)
 
 
-def edt_prob(lbl_img, anisotropy=None):
-    """Per-object normalized Euclidean distance transform (scipy): for every
-    pixel of object ``l`` the distance to the nearest pixel not labeled
-    ``l``, over the object's largest; background 0. Each object is
-    processed in its bounding box grown by one pixel on interior sides."""
+def edt_prob(lbl_img, anisotropy=None, engine="scipy", *, device="cuda"):
+    """Per-object normalized Euclidean distance transform: for every pixel
+    of object ``l`` the distance to the nearest pixel not labeled ``l``,
+    over the object's largest; background 0.
+
+    ``engine="scipy"`` runs on the host, each object in its bounding box
+    grown by one pixel on interior sides. ``engine="jax"``, the reference's
+    name for its device engine, runs the exact separable min-plus EDT
+    (:func:`.ops.edt.edt_prob_batch`) on ``device`` (the card unless the
+    caller passes ``device="cpu"``) and returns numpy. Any other name runs
+    the host path, as in the reference (utils.py:117)."""
+    if engine == "jax":
+        lbl = as_tensor_on(np.asarray(lbl_img).astype(np.int32), device)
+        labels = torch.unique(lbl[lbl > 0])
+        if len(labels) == 0:
+            return np.zeros(lbl.shape, np.float32)
+        from .ops.edt import edt_prob_core
+        return edt_prob_core(lbl, labels.to(torch.int32), anisotropy).cpu().numpy()
     constant_img = lbl_img.min() == lbl_img.max() and lbl_img.flat[0] > 0
     if constant_img:
         lbl_img = np.pad(lbl_img, ((1, 1),) * lbl_img.ndim, mode="constant")
@@ -160,6 +173,51 @@ def edt_prob(lbl_img, anisotropy=None):
     if constant_img:
         prob = prob[(slice(1, -1),) * lbl_img.ndim].copy()
     return prob
+
+
+def _invert_dict(d):
+    res = defaultdict(list)
+    for k, v in d.items():
+        res[v].append(k)
+    return res
+
+
+def mask_to_categorical(y, n_classes, classes, return_cls_dict=False):
+    """A class map of shape ``y.shape + (n_classes + 1,)`` (float32) of the
+    label image ``y``: channel 0 the background, channel c the objects of
+    class c. ``classes`` maps each label to its class (0 background, 1 ..
+    n_classes, or None: its pixels are -1 in every channel but the
+    background's); a scalar or None applies to every label. With
+    ``return_cls_dict`` also the class -> labels dict."""
+    _check_label_array(y, "y")
+    if not (np.issubdtype(type(n_classes), np.integer) and n_classes >= 1):
+        raise ValueError(f"n_classes is '{n_classes}' but should be a positive integer")
+
+    y_labels = np.unique(y[y > 0]).tolist()
+
+    if np.issubdtype(type(classes), np.integer) or classes is None:
+        classes = dict((k, classes) for k in y_labels)
+    elif not isinstance(classes, dict):
+        raise ValueError("classes should be dict, single scalar, or None!")
+
+    if not set(y_labels).issubset(set(classes.keys())):
+        raise ValueError(
+            f"all gt labels should be present in class dict provided \n"
+            f"gt_labels found\n{set(y_labels)}\nclass dict labels provided\n{set(classes.keys())}"
+        )
+
+    cls_dict = _invert_dict(classes)
+    y_mask = np.zeros(y.shape + (n_classes + 1,), np.float32)
+    for cls, labels in cls_dict.items():
+        if cls is None:
+            y_mask[np.isin(y, labels), :] = -1
+        elif np.issubdtype(type(cls), np.integer) and 0 <= cls <= n_classes:
+            y_mask[np.isin(y, labels), cls] = 1
+        else:
+            raise ValueError(f"Wrong class id '{cls}' (for n_classes={n_classes})")
+    y_mask[..., 0] = y == 0
+
+    return (y_mask, cls_dict) if return_cls_dict else y_mask
 
 
 def clear_border(lbl):

@@ -4,6 +4,7 @@ ones keyword-only. A reference parameter that is not ported yet raises when
 it is set; one that only affects speed or printing is taken and changes
 nothing. ``predict_sparse`` returns numpy, as the reference does. A float32
 net sends its convs to the plain versions, by its type."""
+import importlib
 import inspect
 
 import numpy as np
@@ -25,7 +26,7 @@ from tests.utils import synthetic_nuclei_2d
 torch.set_num_threads(2)
 
 # the port's own parameters; each is keyword-only
-PORT_ONLY = {"b", "stats", "device", "out_dtype", "timings", "fetch"}
+PORT_ONLY = {"b", "stats", "device", "out_dtype", "timings", "fetch", "inference_dtype"}
 
 PAIRS = {
     "StarDist2D.predict_instances": (StarDist2D.predict_instances, StarDist2DJax.predict_instances),
@@ -62,6 +63,9 @@ PAIRS = {
     "dist_to_volume": (tgeom.dist_to_volume, jgeom3d.dist_to_volume),
     "dist_to_centroid": (tgeom.dist_to_centroid, jgeom3d.dist_to_centroid),
     "export_to_obj_file3D": (tgeom.export_to_obj_file3D, jgeom.export_to_obj_file3D),
+    "edt_prob": (tutils.edt_prob, jutils.edt_prob),
+    "StarDist2D.predict_instances_big": (StarDist2D.predict_instances_big,
+                                         StarDist2DJax.predict_instances_big),
 }
 
 
@@ -84,6 +88,108 @@ def test_signature_matches_reference(name):
     assert not any(p.kind == p.VAR_POSITIONAL for p in params)
     extra = {p.name for p in params if p.kind == p.KEYWORD_ONLY}
     assert extra <= PORT_ONLY, extra
+
+
+# the modules whose shared public names the walk compares
+WALKED = ("", ".utils", ".geometry", ".nms", ".matching", ".big", ".models")
+# shared names whose positional parameters differ on purpose, with the reason
+WALK_EXCEPTIONS = {
+    # the internal ops functions the nms modules import: the reference's take
+    # its device-NMS tuning knobs, the port's the kernels' inputs
+    ".nms:nms_polygons": "ops/nms.py, internal",
+    ".nms:nms_polyhedra": "ops/nms.py, internal",
+}
+
+
+def _walk_pairs():
+    """(key, port callable, reference callable) of every function, class
+    constructor and shared public method that the two packages both
+    export from the modules of WALKED (their own, not a library's)."""
+    def own(obj, pkg):
+        return (getattr(obj, "__module__", None) or "").split(".")[0] == pkg
+
+    out = []
+    for mod in WALKED:
+        t = importlib.import_module("stardist_torch" + mod)
+        j = importlib.import_module("stardist_tpu" + mod)
+        for name in sorted(set(dir(t)) & set(dir(j))):
+            a, b = getattr(t, name), getattr(j, name)
+            if name.startswith("_") or not (own(a, "stardist_torch") and own(b, "stardist_tpu")):
+                continue
+            if inspect.isclass(a):
+                shared = sorted(n for n in set(dir(a)) & set(dir(b)) if not n.startswith("_"))
+                out += [(f"{mod or '.'}:{name}.{n}", getattr(a, n), getattr(b, n))
+                        for n in ["__init__"] + shared
+                        if own(getattr(a, n), "stardist_torch") and callable(getattr(a, n))
+                        and own(getattr(b, n), "stardist_tpu") and callable(getattr(b, n))]
+            elif callable(a):
+                out.append((f"{mod or '.'}:{name}", a, b))
+    return out
+
+
+def test_public_signatures_walk():
+    """Every public name the two packages share in WALKED takes the
+    reference's positional parameters, in its order; the port's own
+    parameters are keyword-only and among PORT_ONLY. WALK_EXCEPTIONS lists
+    each name exempted, and every one of them is still walked."""
+    pairs = _walk_pairs()
+    keys = {k for k, _, _ in pairs}
+    assert len(pairs) > 100 and set(WALK_EXCEPTIONS) <= keys
+    for key in (".utils:edt_prob", ".utils:mask_to_categorical", ".models:StarDist2D.__init__",
+                ".big:BlockND.cover", ".models:StarDist3D.predict_instances_big"):
+        assert key in keys, key
+    bad = []
+    for key, port, ref in pairs:
+        if key in WALK_EXCEPTIONS:
+            continue
+        got = [n for n, _ in _positional(port)]
+        want = [n for n, _ in _positional(ref)]
+        extra = {p.name for p in inspect.signature(port).parameters.values()
+                 if p.kind == p.KEYWORD_ONLY} - {p.name for p in inspect.signature(ref)
+                                                 .parameters.values()}
+        if got != want or not extra <= PORT_ONLY:
+            bad.append((key, got, want, extra))
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("value", [dict(prob=0.6, nms=0.3), "namedtuple"])
+def test_thresholds_take_a_dict_as_the_reference(value):
+    """thresholds is a property: a dict (or a namedtuple) assigned to it is
+    kept as a namedtuple of its keys, as the reference keeps it, and
+    predict_instances reads it."""
+    from collections import namedtuple
+    m = StarDist2D(None, "2D_demo", "models/examples", device="cpu")
+    ref = StarDist2DJax(None, "2D_demo", "models/examples")
+    if value == "namedtuple":
+        value = namedtuple("T", ("prob", "nms"))(0.6, 0.3)
+    m.thresholds = value
+    ref.thresholds = value._asdict() if hasattr(value, "_asdict") else value
+    assert tuple(m.thresholds) == tuple(ref.thresholds) == (0.6, 0.3)
+    assert m.thresholds._fields == ref.thresholds._fields == ("prob", "nms")
+    img = synthetic_nuclei_2d((64, 64), n=6, seed=1)[0]
+    lab, det = m.predict_instances(img)
+    lab_k, _ = m.predict_instances(img, prob_thresh=0.6, nms_thresh=0.3)
+    assert np.array_equal(lab, lab_k)
+
+
+@pytest.mark.parametrize("engine", ["scipy", "jax", "other"])
+@pytest.mark.parametrize("anisotropy", [None, (2.0, 1.0)])
+def test_edt_prob_engines_follow_the_reference(engine, anisotropy):
+    """edt_prob(lbl, anisotropy, engine) by position: "scipy" the host
+    path, "jax" (the reference's device engine) the port's min-plus EDT on
+    the given device, any other name the host path, as in the reference;
+    each equal to the reference's same call within 1e-6 (the device EDT
+    sums in float32)."""
+    lbl = synthetic_nuclei_2d((48, 40), n=8, seed=3)[1].astype(np.int32)
+    kw = {"device": "cpu"} if engine == "jax" else {}
+    got = tutils.edt_prob(lbl, anisotropy, engine, **kw)
+    want = np.asarray(jutils.edt_prob(lbl, anisotropy, engine))
+    assert got.dtype == np.float32 and got.shape == lbl.shape and got.max() > 0.9
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    host = tutils.edt_prob(lbl, anisotropy)
+    np.testing.assert_allclose(got, host, rtol=0, atol=1e-6)
+    if engine == "jax":
+        assert not tutils.edt_prob(np.zeros((8, 8), np.int32), engine="jax", device="cpu").any()
 
 
 @pytest.fixture(scope="module")

@@ -597,3 +597,129 @@ def test_3d_device_path_fetch_false_returns_cuda_tensors(cuda_device):
     assert np.array_equal(lab_t.cpu().numpy(), lab)
     lab_s, _ = gm.predict_instances(img, sparse=False)
     assert np.array_equal(lab_s, lab)
+
+
+def _graft(cuda_device, Model, Config, name, n_classes):
+    """``models/examples/<name>`` with a seeded class branch, on the card,
+    and the same model on the CPU."""
+    demo = Model(None, name, "models/examples", device=cuda_device)
+    cfg = Config(**dict(demo.config.to_dict(), n_classes=n_classes,
+                        train_loss_weights=(1, 0.2, 1),
+                        train_class_weights=(1,) * (n_classes + 1)))
+    gm = Model(cfg, basedir=None, device=cuda_device)
+    gm.net.load_state_dict(demo.net.state_dict(), strict=False)
+    gm.thresholds = demo.thresholds
+    cm = Model(cfg, basedir=None, device="cpu")
+    cm.net.load_state_dict({k: v.cpu() for k, v in gm.net.state_dict().items()})
+    cm.thresholds = demo.thresholds
+    return demo, gm, cm
+
+
+def test_multiclass_forward_three_channels_kernel_matches_plain(cuda_device):
+    """The C = 3 first layer (padded to 8 channels) and the class branch's
+    feature conv through the kernel: one launch per conv, prob, dist and
+    prob_class within the forward tolerance of the plain path."""
+    from stardist_torch.models import Config2D
+    from stardist_torch.models.unet import StarDistNet
+    net = StarDistNet(Config2D(n_channel_in=3, n_classes=6, grid=(2, 2), unet_n_depth=2,
+                               unet_n_filter_base=16, net_conv_after_unet=64),
+                      dtype=torch.bfloat16)
+    net.init_weights(torch.Generator().manual_seed(0))
+    net.to(cuda_device)
+    x = torch.rand(256, 320, 3, generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    n0 = tconv.KERNEL.launches
+    prob, dist, pc = net(x)
+    torch.cuda.synchronize()
+    assert tconv.KERNEL.launches - n0 == len(net.conv_blocks())
+    assert net.conv_blocks()[0].weight.shape[-2] == 3 and net.feat_class in net.conv_blocks()
+    prob_p, dist_p, pc_p = net(x, plain=True)
+    assert pc.shape == (7, 128, 160)
+    assert (prob - prob_p).abs().max() < 2e-2 and (pc - pc_p).abs().max() < 2e-2
+    assert (dist - dist_p).abs().max() / dist_p.abs().max().clamp_min(1) < 2e-2
+
+
+def test_multiclass_predict_on_card(cuda_device):
+    """2D_demo with a class branch on the card: labels and survivors those
+    of 2D_demo, class rows the class map at the survivors; the card's
+    candidates through the card's and the CPU's NMS and raster give the
+    same labels and class rows; fetch=False keeps the class rows there."""
+    from stardist_torch.models import Config2D
+    img, _ = _nuclei((256, 320), 40, 0)
+    demo, gm, cm = _graft(cuda_device, StarDist2D, Config2D, "2D_demo", 6)
+    lab_d, det_d = demo.predict_instances(img)
+    lab, det = gm.predict_instances(img)
+    assert np.array_equal(lab, lab_d) and np.array_equal(det["points"], det_d["points"])
+    pc = gm.predict(img)[2]
+    assert np.array_equal(det["class_prob"], pc[tuple((det["points"] // 2).T)])
+    assert np.array_equal(det["class_id"], np.argmax(det["class_prob"], -1))
+    prob, dist, pcs, points = gm._predict_sparse(img)
+    lab_g, det_g = gm._instances_from_prediction(img.shape, prob, dist, points, pcs)
+    lab_c, det_c = cm._instances_from_prediction(img.shape, prob.cpu(), dist.cpu(),
+                                                 points.cpu(), pcs.cpu())
+    assert np.array_equal(lab_g, lab_c)
+    for k in ("points", "class_prob", "class_id"):
+        assert np.array_equal(det_g[k], det_c[k]), k
+    lab_t, det_t = gm.predict_instances_device(img, fetch=False)
+    assert det_t["class_prob"].is_cuda and det_t["class_id"].is_cuda
+    assert np.array_equal(det_t["class_id"].cpu().numpy(), det["class_id"])
+
+
+def test_multiclass_train_step_on_card_agrees_with_cpu(cuda_device):
+    """One multiclass step (host targets, class maps with ignored pixels),
+    card vs CPU with TF32 off: metrics rtol 1e-4, gradients 1e-3."""
+    from stardist_torch.models.model2d import StarDistData2D
+    fields = [_nuclei((256, 256), 30, s) for s in range(3)]
+    Y = [f[1].astype(np.int32) for f in fields]
+    Y[1][Y[1] % 3 == 0] = -1
+    classes = [{int(i): int(i) % 3 + 1 for i in np.unique(y[y > 0])} for y in Y]
+    outs = []
+    for m in _train_models(cuda_device, n_classes=3):
+        data = StarDistData2D([f[0] for f in fields], Y, batch_size=2, n_rays=16, length=1,
+                              n_classes=3, classes=classes, patch_size=(128, 128), grid=(2, 2),
+                              device=m.device)
+        np.random.seed(0)
+        (x,), targets = data[0]
+        m.prepare_for_training()
+        batch = m._put_batch(dict(zip(("x", "prob", "dist", "prob_class"), (x, *targets))))
+        loss, metrics = m._loss_and_metrics(batch)
+        loss.backward()
+        outs.append((targets, {k: float(v) for k, v in metrics.items()},
+                     {k: p.grad.cpu() for k, p in m.net.named_parameters()}))
+    (tg, mg, gg), (tc, mc, gc) = outs
+    assert all(np.array_equal(a, b) for a, b in zip(tg, tc))
+    for k in mc:
+        assert abs(mg[k] - mc[k]) <= 1e-4 * abs(mc[k]), k
+    for k in gc:
+        assert (gg[k] - gc[k]).abs().max() <= 1e-3 * gc[k].abs().max(), k
+
+
+def test_multiclass_3d_predict_on_card(cuda_device):
+    from stardist_torch.models import Config3D
+    img, _ = _nuclei3d((32, 64, 64), 20, 0)
+    demo, gm, cm = _graft(cuda_device, StarDist3D, Config3D, "3D_demo", 2)
+    n0 = tconv.KERNEL3D.launches
+    lab, det = gm.predict_instances(img)
+    assert tconv.KERNEL3D.launches - n0 == len(gm.net.conv_blocks())
+    lab_d, det_d = demo.predict_instances(img)
+    assert np.array_equal(lab, lab_d) and len(det["prob"]) > 0
+    pc = gm.predict(img)[2]
+    assert np.array_equal(det["class_prob"], pc[tuple((det["points"] // (1, 2, 2)).T)])
+    lab_v, det_v = gm.predict_instances_device(img, fetch=False)
+    assert det_v["class_id"].is_cuda
+    assert np.array_equal(det_v["class_id"].cpu().numpy(), det["class_id"])
+
+
+def test_predict_instances_big_on_card(cuda_device):
+    """Block-wise on the card: every block through the kernels, labels
+    1..n, one class row per object, and the same objects as one call."""
+    from stardist_torch.models import Config2D
+    img, _ = _nuclei((640, 600), 300, 2)
+    demo, gm, _ = _graft(cuda_device, StarDist2D, Config2D, "2D_demo", 3)
+    gm._axes_tile_overlap("YX")          # the receptive field's two forwards, before counting
+    n_conv, n_raster = tconv.KERNEL.launches, trt.KERNEL.launches
+    lab, det = gm.predict_instances_big(img, "YX", block_size=256, min_overlap=64, context=32)
+    n_blocks = trt.KERNEL.launches - n_raster
+    assert n_blocks == 16 and tconv.KERNEL.launches - n_conv == n_blocks * len(gm.net.conv_blocks())
+    assert lab.max() == len(det["prob"]) == len(det["class_id"]) == len(det["class_prob"])
+    lab_1, _ = demo.predict_instances(img)
+    assert matching(lab_1, lab, thresh=0.5).accuracy >= 0.98

@@ -261,7 +261,7 @@ def test_unported_arguments_still_raise(setup):
     with pytest.raises(NotImplementedError):
         tm.predict_sparse(img, device_dist=True)
     with pytest.raises(NotImplementedError):
-        StarDist3D(Config3D(n_rays=8, n_classes=2), basedir=None, device="cpu")
+        StarDist3D(Config3D(n_rays=8, unet_batch_norm=True), basedir=None, device="cpu")
     with pytest.raises(NotImplementedError):
         StarDist3D(Config3D(n_rays=8, backbone="resnet", resnet_batch_norm=True), basedir=None,
                    device="cpu")

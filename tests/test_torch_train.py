@@ -241,9 +241,8 @@ def test_shape_completion_trains_on_the_host_path():
 
 
 def test_unported_and_missing_device_raise():
-    with pytest.raises(NotImplementedError):
-        StarDistData2D(*_data(1), batch_size=1, n_rays=8, length=1, n_classes=2,
-                       patch_size=(32, 32))
+    with pytest.raises(NotImplementedError):        # batch norm is not ported
+        StarDist2D(Config2D(**CFG, unet_batch_norm=True), basedir=None, device="cpu")
     if torch.cuda.is_available():
         return                                      # decided at run time: a card is there
     with pytest.raises(RuntimeError):

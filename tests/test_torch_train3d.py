@@ -242,9 +242,9 @@ def test_train_checks_follow_the_reference():
         m.train(imgs, lbls, validation_data=(imgs[:1], lbls[:1]), epochs=1, steps_per_epoch=1)
     with pytest.raises(ValueError):
         m.train(imgs, lbls, validation_data=imgs[:1], epochs=1, steps_per_epoch=1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="X and classes must have same length"):
         StarDistData3D(imgs, lbls, rays=m.rays, batch_size=1, length=1, n_classes=2,
-                       patch_size=PATCH)
+                       classes=[1], patch_size=PATCH)
 
 
 def test_training_imports_no_jax(tmp_path):
