@@ -1,6 +1,6 @@
 """Smoke run of stardist_torch on one CUDA card.
 
-    python3 chip_smoke.py [--phases bcdefghijklmnopqr]
+    python3 chip_smoke.py [--phases bcdefghijklmnopqrstu]
 
 Phases (each prints one line; any failed check exits non-zero):
   (a) the card's name and power limit; build the four CUDA kernels from
@@ -153,9 +153,41 @@ Phases (each prints one line; any failed check exits non-zero):
       call on the field (matching accuracy >= 0.99): walls, blocks,
       objects, peak memory, the raster packing each call ran; then the
       grafted six-class 2D_demo block-wise at 4096^2 with blocks of 2048:
-      one class row per object.
+      one class row per object;
+  (s) the parallel layer's block-wise prediction on (r)'s field and
+      blocks: predict_instances_big_sharded with devices=[cuda:0] and with
+      two slots on the card (one model replica each), labels against
+      predict_instances_big's (matching accuracy 1.0 at IoU 0.99, the same
+      object count), the three calls' walls (median of SHARDED_ROUNDS
+      rounds in turn), the reader's wait, forward and stitch split, peak
+      memory, launches (the conv once per conv and block, the raster once
+      per block); then predict_instances_big_multihost on 2 gloo ranks
+      spawned on the card (run_ranks; a rank's failure or a timeout fails
+      the phase), both stitch modes: replicated, each rank's labels exactly
+      predict_instances_big's (by hash); partitioned, the ranks' writes
+      into one shared np.memmap exactly them; every object key equal on
+      both ranks in both modes; each rank's blocks, walls, the exchange's
+      bytes and time, peak memory and launches;
+  (t) data-parallel training with (l)'s configuration (TensorBoard off),
+      TF32 off: 2 gloo ranks on the card, each on its rows of the same
+      stream, against one process on the whole batch: one fixed raw batch's
+      gradients on rank 0 within DP_GRAD_TOL of their largest magnitude,
+      DP_STEPS losses of StarDist2D.train within DP_LOSS_RTOL, the same on
+      both ranks; steps/s of both and the step split (the all-reduce by
+      CUDA events); dryrun_multichip(2, device="cuda"); then rank 0's
+      weights_best.h5 served through the kernels (kernel path vs plain
+      within FWD_TOL; the pair kernel runs exactly when the NMS has pairs);
+  (u) the imports: StarDist2D.from_pretrained("2D_demo") on the card, and
+      from a file:// zip of it built in build/ (md5 checked, a wrong md5
+      refused, the port's own cache): labels exactly
+      StarDist2D(None, "2D_demo", "models/examples")'s on (e)'s 2048^2
+      field; the native host library (stardist_torch/lib) built with g++
+      and held against the card: star distances (grid 1 and 2) and the
+      survivors' labels exactly, the NMS keep flags of (e)'s candidates
+      equal. The Keras HDF5 import is not driven here (no h5py on the
+      card's machine); the phase says so.
 The line before the last is the kernels' JSON record (the launches of
-(e), (h), (p), (q) and (r)); the last line is
+(e), (h), (p), (q), (r), (s), (t) and (u)); the last line is
 {"ok": true, "device": {...}}. With --phases, only (a) and the named phases
 run (e.g. --phases k to time the tiled call alone), and neither line is
 printed.
@@ -211,7 +243,12 @@ MC3D_CLASSES = 2                 # (q)
 BIG_SIZE = 8192                  # (r): predict_instances_big's field side
 BIG_BLOCKS = dict(block_size=4096, min_overlap=128, context=128)  # (r)
 BIG_MC = (4096, 2048)            # (r): the multiclass field's side and block size
-ALL_PHASES = "bcdefghijklmnopqr"  # (a) runs always
+SHARDED_ROUNDS = 2               # (s): rounds of the block-wise calls, in turn
+RANK_TIMEOUT = 600               # (s), (t): seconds for a spawn of ranks to end
+DP_STEPS = 5                     # (t): steps of the 2-rank and the one-process training
+DP_GRAD_TOL = 1e-4   # (t) first-step gradients, 2 ranks vs one process, of their largest |grad|
+DP_LOSS_RTOL = 1e-4  # (t) losses, 2 ranks vs one process
+ALL_PHASES = "bcdefghijklmnopqrstu"  # (a) runs always
 # one H100 SXM (NVIDIA's data sheet, dense, at the 700 W limit): bf16 tensor
 # cores, f32 outside them, HBM3
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -242,6 +279,16 @@ def synthetic_nuclei(shape, seed, r_range=(7, 14), density=6e-4):
     img = gaussian_filter(img, 1.5)
     img += 0.05 * rng.normal(size=shape).astype(np.float32)
     return img.astype(np.float32), lbl
+
+
+_BIG_FIELD = {}
+
+
+def big_field():
+    """(r)'s and (s)'s seeded BIG_SIZE^2 field, made once (10 s of host work)."""
+    if BIG_SIZE not in _BIG_FIELD:
+        _BIG_FIELD[BIG_SIZE] = synthetic_nuclei((BIG_SIZE, BIG_SIZE), seed=555)
+    return _BIG_FIELD[BIG_SIZE]
 
 
 def synthetic_nuclei_3d(shape, seed, r_range=(4, 7), density=2.5e-4):
@@ -2139,7 +2186,7 @@ def phase_r(dev, kernels, matching, StarDist2D, Config2D, rt):
     """predict_instances_big on an 8192^2 field against one call, then the
     grafted multiclass 2D_demo block-wise."""
     model = StarDist2D(None, "2D_demo", "models/examples", device=dev)
-    img, lbl = synthetic_nuclei((BIG_SIZE, BIG_SIZE), seed=555)
+    img, lbl = big_field()
     packings, draw = [], rt.draw
 
     def spy(inputs, shape, pack32, *args, **kw):       # which packing each raster call ran
@@ -2211,6 +2258,412 @@ def phase_r(dev, kernels, matching, StarDist2D, Config2D, rt):
           f"{det_m['class_id'].shape} rows (one per object), wall {wall_m:.2f} s, launches "
           f"{launches_m}", flush=True)
     return {k: launches[k] + launches_m[k] for k in launches}
+
+
+# -- (s) block-sharded and multi-process prediction ---------------------------
+
+def hashed(a):
+    """(shape, dtype, sha256) of an array: exact equality across processes
+    without shipping the array."""
+    import hashlib
+    a = np.ascontiguousarray(a)
+    return a.shape, str(a.dtype), hashlib.sha256(a.data).hexdigest()
+
+
+def object_rows(polys):
+    """The object keys of a result (big.OBJECT_KEYS), for an exact
+    comparison across processes."""
+    from stardist_torch.big import OBJECT_KEYS
+    return {k: v for k, v in polys.items() if k in OBJECT_KEYS}
+
+
+def same_objects(got, want, what):
+    check(set(got) == set(want), f"{what}: keys {sorted(got)} != {sorted(want)}")
+    for k, w in want.items():
+        check(got[k].dtype == w.dtype and got[k].shape == w.shape and np.array_equal(got[k], w),
+              f"{what}: {k} differs")
+
+
+def s_rank(rank, world_size, device, img_path, shared):
+    """One rank of (s): predict_instances_big_multihost on the 2D_demo field
+    in both stitch modes, each timed; the replicated labels' hash, the
+    objects of both, the partitioned labels into the memmap ``shared``; this
+    rank's blocks, exchange, peak memory and kernel launches."""
+    from stardist_torch.models import StarDist2D
+    from stardist_torch.ops import conv, pair_overlap as po, raster_tiles as rt
+    from stardist_torch.parallel import predict_instances_big_multihost
+    kernels = {"conv": conv.KERNEL, "pair": po.KERNEL, "raster": rt.KERNEL}
+    model = StarDist2D(None, "2D_demo", "models/examples", device=device)
+    img = np.load(img_path, mmap_mode="r")            # the field every rank holds, as a view
+    model.predict_instances(np.asarray(img[:1024, :1024]))           # warm-up
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    for stitch in ("replicated", "partitioned"):
+        stats = {}
+        labels_out = (np.memmap(shared, dtype=np.int32, mode="r+", shape=img.shape)
+                      if stitch == "partitioned" else None)
+        t0 = time.perf_counter()
+        labels, polys = predict_instances_big_multihost(model, img, "YX", stitch=stitch,
+                                                        labels_out=labels_out, stats=stats,
+                                                        **BIG_BLOCKS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if stitch == "partitioned":
+            labels.flush()
+            labels = None
+        out[stitch] = {"wall": wall, "stats": stats, "polys": object_rows(polys),
+                       "labels": None if labels is None else hashed(labels)}
+    out["launches"] = {name: k.launches for name, k in kernels.items()}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def phase_s(dev, kernels, matching, StarDist2D):
+    """Block-sharded and multi-process predict_instances_big (2D_demo, the
+    seeded 8192^2 field of (r), blocks of 4096) against predict_instances_big."""
+    import shutil
+    import tempfile
+    from stardist_torch.parallel import predict_instances_big_sharded, run_ranks
+    t_phase = time.perf_counter()
+    model = StarDist2D(None, "2D_demo", "models/examples", device=dev)
+    img, _ = big_field()
+    model.predict_instances(img[:1024, :1024])         # warm-up
+    model._axes_tile_overlap("YX")
+    n_conv = len(model.net.conv_blocks())
+    one, two = [dev], [dev, dev]
+    calls = {"predict_instances_big": lambda: model.predict_instances_big(img, "YX", **BIG_BLOCKS),
+             "sharded x1": lambda: predict_instances_big_sharded(model, img, "YX", devices=one,
+                                                                 timings=tim["sharded x1"],
+                                                                 **BIG_BLOCKS),
+             "sharded x2": lambda: predict_instances_big_sharded(model, img, "YX", devices=two,
+                                                                 timings=tim["sharded x2"],
+                                                                 **BIG_BLOCKS)}
+    walls = {k: [] for k in calls}
+    tim = {k: {} for k in calls}
+    launches = {k: 0 for k in kernels}
+    results, peaks = {}, {}
+    for rnd in range(SHARDED_ROUNDS):
+        for name, fn in calls.items():
+            if rnd > 0 and name == "predict_instances_big":
+                continue
+            torch.cuda.synchronize()
+            reset_launches(kernels)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+            peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+            if name != "predict_instances_big":
+                n_blocks = tim[name]["blocks"]
+                got = {k: kr.launches for k, kr in kernels.items()}
+                check(got["conv"] == n_conv * n_blocks and got["pair"] > 0
+                      and got["raster"] == n_blocks,
+                      f"(s) {name}: launches {got} for {n_blocks} blocks of {n_conv} convs")
+                for k in launches:
+                    launches[k] += got[k]
+            if rnd == 0:
+                results[name] = res
+    lab_b, det_b = results["predict_instances_big"]
+    n_obj = len(det_b["prob"])
+    exact = {}
+    for name in ("sharded x1", "sharded x2"):
+        lab, det = results[name]
+        # equal labels match at accuracy 1.0; the matching itself takes ~35 s
+        # of host time at 8192^2, so it runs only where they differ
+        exact[name] = np.array_equal(lab_b, lab)
+        acc = 1.0 if exact[name] else matching(lab_b, lab, thresh=0.99).accuracy
+        check(acc == 1.0 and len(det["prob"]) == n_obj,
+              f"(s) {name} vs predict_instances_big: accuracy {acc} at IoU 0.99, "
+              f"{len(det['prob'])} vs {n_obj} objects")
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    print(f"(s) predict_instances_big_sharded {BIG_SIZE}^2 (2D_demo, {BIG_BLOCKS}): "
+          f"{tim['sharded x1']['blocks']} blocks; matching accuracy 1.0 at IoU 0.99 and {n_obj} "
+          f"objects for devices=[cuda:0] and [cuda:0, cuda:0] (labels exactly equal: "
+          f"{exact['sharded x1']}, {exact['sharded x2']}); walls (the block-wise call "
+          f"once, the sharded calls median of {SHARDED_ROUNDS} rounds in turn): " + ", ".join(
+              f"{k} {med[k]:.2f} s ({min(walls[k]):.2f}-{max(walls[k]):.2f})" for k in walls) +
+          "; split of the last sharded calls: " + "; ".join(
+              f"{k}: reader wait {tim[k]['read_wait']:.3f} s, forward {tim[k]['forward']:.3f} s, "
+              f"candidates + NMS + labels + stitch {tim[k]['stitch']:.3f} s, {tim[k]['batches']} "
+              f"batches" for k in ("sharded x1", "sharded x2")) +
+          "; peak memory " + ", ".join(f"{k} {v:.2f} GiB" for k, v in peaks.items()) +
+          f"; launches (sharded calls) {launches}", flush=True)
+
+    del results
+    torch.cuda.empty_cache()
+    os.makedirs("build", exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_s_", dir="build")
+    try:
+        img_path = os.path.join(work, "field.npy")
+        np.save(img_path, img)
+        shared = os.path.join(work, "labels.i32")
+        np.memmap(shared, dtype=np.int32, mode="w+", shape=img.shape).flush()
+        t0 = time.perf_counter()
+        ranks = run_ranks(s_rank, 2, (str(dev), img_path, shared), backend="gloo",
+                          timeout=RANK_TIMEOUT, tmp_dir=work)
+        t_spawn = time.perf_counter() - t0
+        part = np.memmap(shared, dtype=np.int32, mode="r", shape=img.shape)
+        check(np.array_equal(part, lab_b), "(s) partitioned: the shared memmap != "
+                                           "predict_instances_big's labels")
+        del part
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    want = object_rows(det_b)
+    want_hash = hashed(lab_b)
+    for r, out in enumerate(ranks):
+        check(out["replicated"]["labels"] == want_hash,
+              f"(s) replicated: rank {r}'s labels != predict_instances_big's")
+        for stitch in ("replicated", "partitioned"):
+            same_objects(out[stitch]["polys"], want, f"(s) {stitch}, rank {r}")
+        check(all(v > 0 for v in out["launches"].values()),
+              f"(s) rank {r} launches {out['launches']}")
+        for k in launches:
+            launches[k] += out["launches"][k]
+    print(f"(s) predict_instances_big_multihost on 2 ranks (gloo, one card), {BIG_SIZE}^2: "
+          f"replicated labels exactly predict_instances_big's on both ranks; partitioned: the "
+          f"shared memmap exactly them; objects equal on both ranks in both modes; spawn and "
+          f"both calls {t_spawn:.1f} s; " + "; ".join(
+              f"rank {r}: {o['replicated']['stats']['blocks']} blocks, walls replicated "
+              f"{o['replicated']['wall']:.2f} s (exchange {o['replicated']['stats']['bytes']} B "
+              f"in {o['replicated']['stats']['exchange_s'] * 1e3:.1f} ms, the wait for the other "
+              f"rank included), partitioned "
+              f"{o['partitioned']['wall']:.2f} s (exchange {o['partitioned']['stats']['bytes']} "
+              f"B in {o['partitioned']['stats']['exchange_s'] * 1e3:.1f} ms), peak memory "
+              f"{o['peak_gib']:.2f} GiB, launches {o['launches']}"
+              for r, o in enumerate(ranks)) + f"; the phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
+# -- (t) data-parallel training -----------------------------------------------
+
+def t_train(dev, workdir, rank=0):
+    """The (l) configuration on ``dev`` with TF32 off: one step on a fixed
+    raw batch (this rank's rows of it under a process group) and its
+    gradients, then StarDist2D.train 1 x DP_STEPS steps (rank 0 writes
+    weights into ``workdir``): losses, walls, the step split."""
+    from stardist_torch.models import Config2D, StarDist2D
+    from stardist_torch.models.model2d import StarDistData2D
+    set_tf32(False)
+    n, side = TRAIN_FIELDS
+    fields = [synthetic_nuclei((side, side), seed=700 + i) for i in range(n)]
+    X, Y = [f[0] for f in fields], [f[1] for f in fields]
+    # no TensorBoard: importing it may reseed numpy's RNG, and only rank 0
+    # (which writes) would import it, so the one process would draw another stream
+    cfg = Config2D(**TRAIN_CONFIG, train_tensorboard=False)
+    m = StarDist2D(cfg, basedir=None, device=dev)
+    m.prepare_for_training()
+    data = StarDistData2D(X, Y, batch_size=cfg.train_batch_size, n_rays=cfg.n_rays, length=1,
+                          patch_size=cfg.train_patch_size, grid=cfg.grid,
+                          foreground_prob=cfg.train_foreground_only)
+    np.random.seed(11)
+    batch = m._put_batch(data.raw_item(0), shard=True)
+    m._train_step(batch, torch.Generator(device=dev).manual_seed(0))
+    grads = {k: p.grad.cpu() for k, p in m.net.named_parameters()}
+    m = StarDist2D(cfg, name="t_dp", basedir=workdir if rank == 0 else None, device=dev)
+    marks = StageMarks()
+    m.step_marks = marks
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = m.train(X, Y, validation_data=(X[:2], Y[:2]), seed=21, epochs=1,
+                steps_per_epoch=DP_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    split, step_ms = marks.split()
+    return {"rows": len(batch["x"]), "grads": grads, "losses": list(h.steps["loss"]),
+            "wall": wall, "split": split, "step_ms": step_ms}
+
+
+def t_rank(rank, world_size, device, workdir):
+    return t_train(torch.device(device), workdir, rank)
+
+
+def phase_t(dev, kernels, StarDist2D):
+    """Data-parallel training: 2 gloo ranks on the card against one process
+    on the whole batch; dryrun_multichip; the trained weights served."""
+    import shutil
+    import tempfile
+    from stardist_torch.parallel import dryrun_multichip, run_ranks
+    t_phase = time.perf_counter()
+    os.makedirs("build", exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_t_", dir="build")
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    try:
+        t0 = time.perf_counter()
+        ranks = run_ranks(t_rank, 2, (str(dev), work), backend="gloo", timeout=RANK_TIMEOUT,
+                          tmp_dir=work)
+        t_ranks = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        one = t_train(dev, None)
+        t_one = time.perf_counter() - t0
+        r0 = ranks[0]
+        check([r["rows"] for r in ranks] == [one["rows"] // 2] * 2,
+              f"(t) rows per rank {[r['rows'] for r in ranks]} of a batch of {one['rows']}")
+        e_grad = max(float((r0["grads"][k] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+                     for k, g in one["grads"].items())
+        check(e_grad <= DP_GRAD_TOL, f"(t) first-step gradients: rank 0 vs one process {e_grad}")
+        e_loss = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], one["losses"]))
+        check(len(r0["losses"]) == len(one["losses"]) == DP_STEPS and e_loss <= DP_LOSS_RTOL,
+              f"(t) losses 2 ranks {r0['losses']} vs one process {one['losses']}")
+        check(ranks[1]["losses"] == r0["losses"], "(t) the ranks' losses differ")
+        t0 = time.perf_counter()
+        dry = dryrun_multichip(2, device="cuda", timeout=RANK_TIMEOUT)
+        t_dry = time.perf_counter() - t0
+        set_tf32(False)
+
+        def split(r):
+            return ", ".join(f"{k} {v:.3f}" for k, v in r["split"].items())
+        print(f"(t) data-parallel training, {TRAIN_CONFIG} at {one['rows']} x 256^2 (TF32 off): "
+              f"2 gloo ranks on the card ({r0['rows']} rows each) vs one process: first-step "
+              f"gradients max {e_grad:.2e} of their largest magnitude, {DP_STEPS} losses max rel "
+              f"diff {e_loss:.2e} ({r0['losses'][0]:.5f} .. {r0['losses'][-1]:.5f}); steps/s "
+              f"(median step): 2 ranks {1e3 / r0['step_ms']:.1f} ({r0['step_ms']:.1f} ms; split "
+              f"ms {split(r0)}), one process {1e3 / one['step_ms']:.1f} ({one['step_ms']:.1f} "
+              f"ms; split ms {split(one)}); train() walls {r0['wall']:.1f} s (2 ranks) and "
+              f"{one['wall']:.1f} s (one); spawn + both ranks {t_ranks:.1f} s, the one process "
+              f"{t_one:.1f} s; dryrun_multichip(2, 'cuda') in {t_dry:.1f} s: {dry}", flush=True)
+
+        served = StarDist2D(None, name="t_dp", basedir=work, device=dev)
+        img, _ = synthetic_nuclei((TRAIN_FIELDS[1],) * 2, seed=701)
+        x = torch.from_numpy(img[:, :, None]).to(dev)
+        prob, dist = served.net(x)
+        prob_p, dist_p = served.net(x, plain=True)
+        e_prob = (prob - prob_p).abs().max().item()
+        e_dist = ((dist - dist_p).abs().max() / dist_p.abs().max().clamp_min(1.0)).item()
+        check(e_prob < FWD_TOL and e_dist < FWD_TOL,
+              f"(t) served weights: kernel path vs plain: prob {e_prob}, dist {e_dist}")
+        thresh = float(min(0.5, np.quantile(prob.cpu().numpy(), 0.95)))
+        reset_launches(kernels)
+        labels, det = served.predict_instances(img, prob_thresh=thresh)
+        torch.cuda.synchronize()
+        launches = {name: k.launches for name, k in kernels.items()}
+        pairs = det["nms_counters"]["n_eval_pairs"]
+        # after DP_STEPS steps the polygons may be too small to overlap: the
+        # pair kernel runs exactly when the NMS has pairs to test
+        check(launches["conv"] == len(served.net.conv_blocks()) and launches["raster"] > 0
+              and (launches["pair"] > 0) == (pairs > 0),
+              f"(t) served: launches {launches}, {pairs} exact pairs")
+        check(labels.shape == img.shape and labels.max() > 0, "(t) served model drew no label")
+        print(f"(t) the 2-rank training's weights_best.h5 served on the card: kernel path vs "
+              f"plain prob {e_prob:.2e}, dist {e_dist:.2e}; predict_instances "
+              f"{TRAIN_FIELDS[1]}^2 at prob_thresh {thresh:.3f}: {len(det['prob'])} objects, "
+              f"{pairs} exact pairs, launches {launches}; the phase "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+# -- (u) imports ----------------------------------------------------------------
+
+def phase_u(dev, kernels, StarDist2D):
+    """from_pretrained (the registry's 2D_demo, and a file:// zip) and the
+    native host library against the port on the card."""
+    import hashlib
+    import shutil
+    import tempfile
+    import zipfile
+    from stardist_torch.geometry import polygons_to_label, star_dist
+    from stardist_torch.geometry.geom2d import render_order
+    from stardist_torch.lib import get_lib, nms2d_native, polygons_to_label_native, \
+        star_dist2d_native
+    from stardist_torch.models import register_model
+    from stardist_torch.nms import descending_order
+    t_phase = time.perf_counter()
+    img, lbl = synthetic_nuclei((E2E_SIZE, E2E_SIZE), seed=123)
+    ref = StarDist2D(None, "2D_demo", "models/examples", device=dev)
+    lab_ref, det_ref = ref.predict_instances(img)
+    launches = {k: 0 for k in kernels}
+
+    def counted(model):
+        reset_launches(kernels)
+        out = model.predict_instances(img)
+        torch.cuda.synchronize()
+        got = read_launches(kernels, model)
+        for k in launches:
+            launches[k] += got[k]
+        return out
+
+    lab, det = counted(StarDist2D.from_pretrained("2D_demo", device=dev))
+    check(np.array_equal(lab, lab_ref), "(u) from_pretrained('2D_demo') labels differ")
+    os.makedirs("build", exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_u_", dir="build")
+    cache = os.environ.get("STARDIST_TORCH_MODEL_CACHE")
+    try:
+        zip_path = os.path.join(work, "2D_demo.zip")
+        with zipfile.ZipFile(zip_path, "w") as z:
+            for f in sorted(os.listdir("models/examples/2D_demo")):
+                if os.path.isfile(os.path.join("models/examples/2D_demo", f)):
+                    z.write(os.path.join("models/examples/2D_demo", f), f"2D_demo/{f}")
+        md5 = hashlib.md5(open(zip_path, "rb").read()).hexdigest()
+        os.environ["STARDIST_TORCH_MODEL_CACHE"] = os.path.join(work, "cache")
+        uri = "file://" + os.path.abspath(zip_path)
+        register_model(StarDist2D, "2D_demo_zip", uri, md5)
+        register_model(StarDist2D, "2D_demo_bad_md5", uri, "0" * 32)
+        t0 = time.perf_counter()
+        zipped = StarDist2D.from_pretrained("2D_demo_zip", device=dev)
+        t_zip = time.perf_counter() - t0
+        lab_z, _ = counted(zipped)
+        check(np.array_equal(lab_z, lab_ref), "(u) from_pretrained of the zip: labels differ")
+        try:
+            StarDist2D.from_pretrained("2D_demo_bad_md5", device=dev)
+            bad = False
+        except ValueError:
+            bad = True
+        check(bad, "(u) a zip with a wrong md5 was loaded")
+    finally:
+        if cache is None:
+            os.environ.pop("STARDIST_TORCH_MODEL_CACHE", None)
+        else:
+            os.environ["STARDIST_TORCH_MODEL_CACHE"] = cache
+        shutil.rmtree(work, ignore_errors=True)
+
+    import importlib.util
+    h5py_found = importlib.util.find_spec("h5py") is not None
+    t0 = time.perf_counter()
+    get_lib()
+    t_lib = time.perf_counter() - t0
+    n_rays = ref.config.n_rays
+    for grid in ((1, 1), tuple(ref.config.grid)):
+        a = star_dist(lbl, n_rays, grid=grid, device=dev)
+        check(np.array_equal(a, star_dist2d_native(lbl, n_rays, grid=grid)),
+              f"(u) star distances (grid {grid}): card != native")
+    dist, points, prob = (det_ref[k] for k in ("dist", "points", "prob"))
+    lab_card = polygons_to_label(torch.from_numpy(dist).to(dev), torch.from_numpy(points).to(dev),
+                                 img.shape, prob=torch.from_numpy(prob).to(dev)).cpu().numpy()
+    lab_nat = polygons_to_label_native(dist, points, img.shape,
+                                       render_order(torch.from_numpy(prob)).numpy(),
+                                       labels=np.arange(len(prob)))
+    check(np.array_equal(lab_card, lab_nat) and np.array_equal(lab_ref, lab_nat),
+          "(u) labels: card != native")
+    cand_prob, cand_dist, cand_points = ref._predict_sparse(img)
+    order = descending_order(cand_prob)
+    d_s, p_s = cand_dist[order], cand_points[order]
+    nms = float(ref.thresholds.nms)
+    reset_launches(kernels)
+    keep = ref._nms_keep(cand_prob[order], d_s, p_s, nms).cpu().numpy()
+    torch.cuda.synchronize()
+    launches["pair"] += kernels["pair"].launches
+    t0 = time.perf_counter()
+    keep_nat = nms2d_native(d_s.cpu().numpy(), p_s.cpu().numpy().astype(np.float32), nms)
+    t_nat = time.perf_counter() - t0
+    check(np.array_equal(keep, keep_nat), f"(u) keep flags: card {int(keep.sum())} vs native "
+                                          f"{int(keep_nat.sum())} of {len(keep)}")
+    print(f"(u) from_pretrained('2D_demo') on the card: labels exactly StarDist2D(None, "
+          f"'2D_demo', 'models/examples')'s at {E2E_SIZE}^2 ({int(lab.max())} objects); from a "
+          f"file:// zip (md5 checked, {t_zip:.2f} s to unpack and load): equal too, and a wrong "
+          f"md5 refused; native library built in {t_lib:.1f} s: star distances (grid 1 and "
+          f"{tuple(ref.config.grid)}, {n_rays} rays, {E2E_SIZE}^2) exactly the card's, labels of "
+          f"{len(prob)} polygons exactly the card's, keep flags of {len(keep)} candidates "
+          f"({int(keep.sum())} kept) exactly the card's (native NMS {t_nat:.2f} s on the host); "
+          f"the Keras HDF5 import is not driven here: it needs h5py (installed: {h5py_found}; "
+          f"tests/test_torch_h5_import.py holds it on the CPU); launches {launches}; the phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
 
 
 def main(argv=None):
@@ -2299,6 +2752,15 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "r" in phases:
         more.append(phase_r(dev, kernels, matching, StarDist2D, Config2D, rt))
+        torch.cuda.empty_cache()
+    if "s" in phases:
+        more.append(phase_s(dev, kernels, matching, StarDist2D))
+        torch.cuda.empty_cache()
+    if "t" in phases:
+        more.append(phase_t(dev, kernels, StarDist2D))
+        torch.cuda.empty_cache()
+    if "u" in phases:
+        more.append(phase_u(dev, kernels, StarDist2D))
     if phases != set(ALL_PHASES):
         return 0
     launches["conv3d"] = launches3d

@@ -14,6 +14,18 @@ the 2D label raster run as CUDA kernels on CUDA tensors
 (``stardist_torch/csrc``) and as their plain PyTorch versions on CPU
 tensors.
 
+The parallel layer (:mod:`.parallel`): data-parallel training over the
+ranks of a ``torch.distributed`` process group (each rank on its rows of
+the batch, the same update as one process), block-wise prediction of big
+images with the block forwards spread over devices
+(``predict_instances_big_sharded``) or over ranks
+(``predict_instances_big_multihost``), and ``dryrun_multichip``. The
+weight imports: Keras HDF5 files of upstream StarDist's model zoo
+(``load_weights``, with ``h5py``) and the model registry
+(``models.register_model``, ``StarDist2D.from_pretrained``). The native
+host library (:mod:`.lib`, built with g++) is the test oracle and the C
+embedding ABI; no model path calls it.
+
 This package imports torch, numpy and scipy only.
 """
 from .version import __version__

@@ -10,7 +10,14 @@ augments the batches on the host, four ahead of the step; the step uploads
 them (pinned, non-blocking on CUDA), builds the targets there when the
 model has a targets function (``_device_targets_fn``), and runs the loss,
 the backward pass and the update on ``self.device``; the metrics stay there
-until the epoch ends.
+until the epoch ends. Under a ``torch.distributed`` process group whose
+world size divides the batch, each rank takes its rows of the same batch
+and the update is the one-process update of the whole batch (data-parallel
+training, :meth:`StarDistBase._train_step`); only rank 0 writes files.
+
+Weights: the reference's flax checkpoints (``models/weights.py``) and Keras
+HDF5 files of upstream StarDist's model zoo (:meth:`StarDistBase.
+_import_keras_h5`).
 
 ``predict_instances`` = normalize -> pad -> U-Net forward -> candidate
 extraction (threshold, border mask, gather of the candidates' dist columns)
@@ -39,15 +46,19 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.axes import axes_check_and_normalize, axes_dict, move_image_axes
 from ..core.normalize import NoNormalizer, Normalizer
 from ..core.tiling import tile_iterator
+from ..parallel.mesh import (broadcast_numpy_rng, broadcast_parameters, data_parallel_slice,
+                             world)
 from ..sample_patches import get_valid_inds
 from ..utils import _is_power_of_2, grid_divisible_patch_size, optimize_threshold
 from . import losses as L
 from .unet import StarDistNet
-from .weights import load_flax_checkpoint, params_from_flax, save_flax_checkpoint
+from .weights import (load_flax_checkpoint, params_from_flax, params_to_flax,
+                      save_flax_checkpoint)
 
 INIT_SEED = 42           # a fresh model's weights, as the reference's
 METRICS = ("loss", "prob_loss", "dist_loss", "prob_kld", "dist_relevant_mae",
@@ -347,6 +358,7 @@ class StarDistBase:
         self.config = config
         self.name = name
         self._model_prepared = False
+        self._batch_rows = None          # this rank's rows of a batch (prepare_for_training)
         # a callable the training loop calls with the name of each stage of a
         # step as it is issued (start, wait, upload, targets, forward+backward,
         # optimizer), to time them; None: nothing is called
@@ -422,14 +434,108 @@ class StarDistBase:
         return ([f for f in files if prefer in f.name] + files)[0]
 
     def load_weights(self, name="weights_best.h5"):
-        """Load a flax msgpack checkpoint (the reference's ``.h5`` files):
-        ``name`` in the model folder, or an absolute path."""
+        """Load a flax msgpack checkpoint (the reference's ``.h5`` files) or
+        a Keras HDF5 weights file (upstream StarDist's; read by
+        :meth:`_import_keras_h5`, which needs ``h5py``): ``name`` in the
+        model folder, or an absolute path."""
         path = Path(name) if Path(name).is_absolute() else self.logdir / name
-        if path.read_bytes()[:4] == b"\x89HDF":
-            raise NotImplementedError("Keras HDF5 import is not ported yet")
-        sd = params_from_flax(self.net, load_flax_checkpoint(path))
+        with open(path, "rb") as f:
+            keras = f.read(4) == b"\x89HDF"
+        sd = self._import_keras_h5(path) if keras else params_from_flax(
+            self.net, load_flax_checkpoint(path))
         self.net.load_state_dict(sd)
         self.net.to(self.device)
+
+    def _keras_conv_slots(self):
+        """The net's conv modules as paths into the flax parameter tree
+        (:func:`.weights.params_to_flax`), in the order of the forward,
+        which is the order of the reference's Keras build; and the paths of
+        the layers upstream StarDist names (``features``, ``prob``,
+        ``dist``, ``features_class``, ``prob_class``). The U-Net backbone
+        only, without batch norm, as the reference's import
+        (base.py:482-535)."""
+        cfg = self.config
+        if str(cfg.backbone).lower() != "unet":
+            raise NotImplementedError("Keras HDF5 import currently supports the unet backbone only")
+        if cfg.unet_batch_norm:
+            raise NotImplementedError("Keras HDF5 import with batch_norm is not supported yet")
+        grid, n_conv = tuple(cfg.grid), cfg.unet_n_conv_per_depth
+        slots, outer = [], 0
+        pooled = np.ones(len(grid), int)
+        while tuple(pooled) != grid:                     # the grid's pre-pooling convs
+            pooled *= 1 + (np.asarray(grid) > pooled)
+            for _ in range(n_conv):
+                slots.append((f"ConvBlock_{outer}", "Conv_0"))
+                outer += 1
+        for inner in range((2 * cfg.unet_n_depth + 1) * n_conv):   # down, middle, up
+            slots.append(("UNetBackbone_0", f"ConvBlock_{inner}", "Conv_0"))
+        named = {}
+        if cfg.net_conv_after_unet > 0:
+            named["features"] = (f"ConvBlock_{outer}", "Conv_0")
+            slots.append(named["features"])
+            outer += 1
+        named["prob"], named["dist"] = ("head_prob",), ("head_dist",)
+        slots += [named["prob"], named["dist"]]
+        if self._is_multiclass():
+            if cfg.net_conv_after_unet > 0:
+                named["features_class"] = (f"ConvBlock_{outer}", "Conv_0")
+                slots.append(named["features_class"])
+            named["prob_class"] = ("head_prob_class",)
+            slots.append(named["prob_class"])
+        return slots, named
+
+    def _import_keras_h5(self, path):
+        """The state dict of a Keras ``save_weights`` HDF5 file (the layout
+        of upstream StarDist's zoo, its csbdeep U-Net) for this net
+        (reference base.py:537-599). The layers upstream StarDist names are
+        placed by name; the other conv layers fill the net's remaining conv
+        slots in the order of the forward, with a shape check at every
+        slot. The weights go through the flax parameter tree, so they land
+        on exactly the tensors :func:`.weights.params_from_flax` makes of
+        the reference's import."""
+        import h5py
+
+        def text(v):
+            return v.decode() if isinstance(v, bytes) else v
+
+        with h5py.File(path, "r") as f:
+            g = f["model_weights"] if "model_weights" in f else f
+            if "layer_names" not in g.attrs:
+                raise ValueError(f"not a Keras weights HDF5 file: {path}")
+            entries = []
+            for ln in map(text, g.attrs["layer_names"]):
+                wnames = [text(n) for n in g[ln].attrs.get("weight_names", [])]
+                if wnames:
+                    entries.append((ln, [np.asarray(g[ln][wn]) for wn in wnames]))
+
+        slots, named = self._keras_conv_slots()
+        assign, anon = {}, []
+        for ln, ws in entries:
+            if len(ws) != 2:
+                raise NotImplementedError(f"layer '{ln}' has {len(ws)} weights; only conv "
+                                          "kernel+bias layers are supported")
+            if ln in named:
+                assign[named[ln]] = ws
+            else:
+                anon.append((ln, ws))
+        open_slots = [s for s in slots if s not in assign]
+        if len(anon) != len(open_slots):
+            raise ValueError(f"Keras file has {len(anon)} unnamed conv layers but the network "
+                             f"expects {len(open_slots)} ({[ln for ln, _ in anon]} vs "
+                             f"{open_slots})")
+        assign.update(zip(open_slots, (ws for _, ws in anon)))
+
+        params = params_to_flax(self.net)
+        for slot, (kernel, bias) in assign.items():
+            node = params
+            for k in slot:
+                node = node[k]
+            if node["kernel"].shape != kernel.shape or node["bias"].shape != bias.shape:
+                raise ValueError(f"shape mismatch at {slot}: network {node['kernel'].shape}/"
+                                 f"{node['bias'].shape} vs h5 {kernel.shape}/{bias.shape}")
+            node["kernel"] = np.asarray(kernel, np.float32)
+            node["bias"] = np.asarray(bias, np.float32)
+        return params_from_flax(self.net, params)
 
     def save_weights(self, name="weights_best.h5"):
         """Write the weights into the model folder as the reference's flax
@@ -465,12 +571,18 @@ class StarDistBase:
 
     def prepare_for_training(self, optimizer=None):
         """Set up the optimizer (Adam with optax's defaults: betas 0.9 /
-        0.999, eps 1e-8) and the targets function of the training step."""
+        0.999, eps 1e-8), the targets function of the training step and,
+        under a process group, the data parallelism (reference base.py:
+        733-740): every rank takes rank 0's weights, and when the world size
+        divides ``train_batch_size`` each step runs this rank's rows of the
+        batch (``_batch_rows``), else the whole batch on every rank."""
         if optimizer is None:
             optimizer = torch.optim.Adam(self.net.parameters(), lr=self.config.train_learning_rate,
                                          betas=(0.9, 0.999), eps=1e-8)
         self.optimizer = optimizer
         self._targets_fn = self._device_targets_fn()
+        self._batch_rows = data_parallel_slice(self.config.train_batch_size)
+        broadcast_parameters(self.net)
         self._model_prepared = True
 
     def _metric_names(self):
@@ -478,60 +590,116 @@ class StarDistBase:
         class loss last for a multiclass model)."""
         return METRICS_MULTICLASS if self._is_multiclass() else METRICS
 
-    def _loss_and_metrics(self, batch, generator=None):
+    def _shard(self, batch):
+        """The whole batch's loss normalizers (:class:`.losses.Shard`) for a
+        target batch that holds this rank's rows of it: the rows' counts
+        summed over the ranks by one all-reduce (the targets carry no
+        gradient)."""
+        n_rays, total = self.config.n_rays, self.config.train_batch_size
+        prob_true, dist_mask = batch["prob"][..., 0], batch["dist"][..., n_rays:]
+        sums = torch.stack([torch.sum((prob_true >= 0).to(prob_true.dtype)), torch.sum(dist_mask)])
+        dist.all_reduce(sums, group=world()[2])
+        rows = len(prob_true)
+        return L.Shard(prob_mask_sum=sums[0], dist_mask_mean=sums[1] / (dist_mask.numel() *
+                                                                         total // rows),
+                       share=rows / total)
+
+    def _loss_and_metrics(self, batch, generator=None, rows=None):
         """(loss, metrics dict) of a target batch ``{"x", "prob", "dist"}``
         (and ``"prob_class"`` for a multiclass model) on the device; the
-        metrics are computed without autograd."""
+        metrics are computed without autograd. ``rows``: the batch holds
+        these rows (a slice) of a batch of ``train_batch_size`` split over
+        the ranks; the loss and metrics are then this rank's shares of the
+        whole batch's (:meth:`_shard`), which the ranks sum."""
         cfg = self.config
         w = tuple(cfg.train_loss_weights)
         n_rays = cfg.n_rays
-        outs = self.net.train_forward(batch["x"], generator)
+        shard = None if rows is None else self._shard(batch)
+        outs = self.net.train_forward(batch["x"], generator,
+                                      None if rows is None else (rows, cfg.train_batch_size))
         prob_pred, dist_pred = outs[:2]
         prob_true, dist_true = batch["prob"][..., 0], batch["dist"][..., :n_rays]
         dist_mask = batch["dist"][..., n_rays:]
-        lp = L.prob_loss(prob_true, prob_pred[..., 0])
+        lp = L.prob_loss(prob_true, prob_pred[..., 0], shard)
         ld = L.dist_loss(dist_true, dist_mask, dist_pred, kind=cfg.train_dist_loss,
-                         reg_weight=float(cfg.train_background_reg))
+                         reg_weight=float(cfg.train_background_reg), shard=shard)
         loss = w[0] * lp + w[1] * ld
         with torch.no_grad():
             p, d = prob_pred.detach()[..., 0], dist_pred.detach()
             metrics = {"loss": loss.detach(), "prob_loss": lp.detach(), "dist_loss": ld.detach(),
-                       "prob_kld": L.kld_metric(prob_true, p),
-                       "dist_relevant_mae": L.relevant_mae(dist_true, dist_mask, d),
-                       "dist_relevant_mse": L.relevant_mse(dist_true, dist_mask, d),
-                       "dist_dist_iou_metric": L.dist_iou_metric(dist_true, dist_mask, d)}
+                       "prob_kld": L.kld_metric(prob_true, p, shard),
+                       "dist_relevant_mae": L.relevant_mae(dist_true, dist_mask, d, shard),
+                       "dist_relevant_mse": L.relevant_mse(dist_true, dist_mask, d, shard),
+                       "dist_dist_iou_metric": L.dist_iou_metric(dist_true, dist_mask, d, shard)}
         if self._is_multiclass():
-            lc = L.class_loss(batch["prob_class"], outs[2], tuple(cfg.train_class_weights))
+            lc = L.class_loss(batch["prob_class"], outs[2], tuple(cfg.train_class_weights),
+                              shard)
             loss = loss + w[2] * lc
             metrics["loss"] = loss.detach()
             metrics["prob_class_loss"] = lc.detach()
         return loss, metrics
 
-    def _put_batch(self, batch):
+    def _put_batch(self, batch, shard=False):
         """A batch's arrays as tensors on the device (non-blocking from
-        pinned memory); other entries as they are."""
-        return {k: (torch.as_tensor(v).to(self.device, non_blocking=True)
-                    if isinstance(v, (np.ndarray, torch.Tensor)) else v)
+        pinned memory); other entries as they are. ``shard``: only this
+        rank's rows of a training batch (``_batch_rows``), where the batch
+        is split over the ranks."""
+        rows = self._batch_rows if shard else None
+
+        def put(v):
+            t = torch.as_tensor(v)
+            return (t if rows is None else t[rows]).to(self.device, non_blocking=True)
+        return {k: (put(v) if isinstance(v, (np.ndarray, torch.Tensor)) else v)
                 for k, v in batch.items()}
 
     def _train_step(self, batch, generator=None, marks=None):
         """One update from a device batch (raw: targets built first) ->
         the metrics as one tensor on the device, in the order of
-        :meth:`_metric_names`.
+        :meth:`_metric_names`. Where the batch is this rank's rows
+        (``_batch_rows``), the ranks' gradients and metrics are summed
+        before the update (:meth:`_all_reduce_grads`).
         ``marks(stage)``, where given, is called as each stage is issued."""
+        rows = self._batch_rows
         if "y" in batch:
             batch = self._targets_fn(batch)
         if marks is not None:
             marks("targets")
-        loss, metrics = self._loss_and_metrics(batch, generator)
+        loss, metrics = self._loss_and_metrics(batch, generator, rows)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         if marks is not None:
             marks("forward+backward")
+        out = torch.stack([metrics[k] for k in self._metric_names()])
+        if rows is not None:
+            out = self._all_reduce_grads(out)
+            if marks is not None:
+                marks("all-reduce")
         self.optimizer.step()
         if marks is not None:
             marks("optimizer")
-        return torch.stack([metrics[k] for k in self._metric_names()])
+        return out
+
+    def _all_reduce_grads(self, metrics):
+        """Sum the ranks' gradients and ``metrics`` (a 1-d tensor) in one
+        all-reduce of one flat buffer; returns the summed metrics.
+
+        By hand, not ``DistributedDataParallel``: DDP averages the ranks'
+        gradients, which is right for a loss that is a mean of per-sample
+        means. This loss is not (its normalizers are masked sums over the
+        whole batch); each rank's loss is already its share of the whole
+        batch's loss (:meth:`_shard`), so the whole batch's gradient is the
+        sum of the ranks' gradients, and the metrics ride in the same
+        buffer."""
+        params = list(self.net.parameters())
+        flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                          for p in params] + [metrics])
+        dist.all_reduce(flat, group=world()[2])
+        off = 0
+        for p in params:
+            g = flat[off:off + p.numel()].view_as(p)
+            p.grad = g.clone() if p.grad is None else p.grad.copy_(g)
+            off += p.numel()
+        return flat[off:]
 
     def _set_lr(self, lr):
         for group in self.optimizer.param_groups:
@@ -564,8 +732,11 @@ class StarDistBase:
         weights, Adam's state, the dropout generator, the learning-rate and
         plateau trackers, the history, and numpy's global RNG as it was at
         the data stream's epoch boundary) and continues as an uninterrupted
-        run would."""
+        run would. Under a process group every rank runs this loop on the
+        same data stream; only rank 0 writes the logs, the checkpoints and
+        ``train_state.pt``."""
         cfg = self.config
+        writes = self.basedir is not None and world()[0] == 0
         generator = torch.Generator(device=self.device).manual_seed(0)   # dropout
         history = History()
         best_ckpt = best_plateau = np.inf
@@ -600,7 +771,7 @@ class StarDistBase:
         if val_batch is not None:
             val_batch = self._put_batch(val_batch)
         jsonl_path = tb_writer = None
-        if self.basedir is not None:
+        if writes:
             log_dir = self.logdir / "logs"
             log_dir.mkdir(parents=True, exist_ok=True)
             jsonl_path = log_dir / "history.jsonl"
@@ -646,6 +817,9 @@ class StarDistBase:
             with epoch_np_rng_lock:
                 epoch_np_rng[epochs] = np.random.get_state()
 
+        # every rank draws rank 0's stream (here, after the TensorBoard
+        # writer: importing it may reseed numpy's global RNG)
+        broadcast_numpy_rng()
         thread = threading.Thread(target=producer, daemon=True)
         thread.start()
         trackers = dict(best_ckpt=best_ckpt, best_plateau=best_plateau,
@@ -653,13 +827,14 @@ class StarDistBase:
         try:
             self._fit_epochs(epochs, steps_per_epoch, prefetch_q, generator, history, jsonl_path,
                              tb_writer, trackers, factor, patience, min_delta, rlrop, val_batch,
-                             start_epoch, epoch_np_rng, epoch_np_rng_lock)
+                             start_epoch, epoch_np_rng, epoch_np_rng_lock, writes)
         finally:
             if tb_writer is not None:
                 tb_writer.close()
             stop.set()
             thread.join()
-        self._training_finished()
+        if writes:
+            self._training_finished()
         return history
 
     def _tb_log_images(self, tb_writer, val_batch, step, n_images=3):
@@ -691,8 +866,9 @@ class StarDistBase:
 
     def _fit_epochs(self, epochs, steps_per_epoch, prefetch_q, generator, history, jsonl_path,
                     tb_writer, trackers, factor, patience, min_delta, rlrop, val_batch,
-                    start_epoch, epoch_np_rng, epoch_np_rng_lock):
+                    start_epoch, epoch_np_rng, epoch_np_rng_lock, writes):
         cfg = self.config
+        rank, n_ranks, group = world()
         best_ckpt, best_plateau = trackers["best_ckpt"], trackers["best_plateau"]
         plateau_wait, lr = trackers["plateau_wait"], trackers["lr"]
         marks = self.step_marks
@@ -706,7 +882,7 @@ class StarDistBase:
                     raise batch
                 if marks is not None:
                     marks("wait")
-                batch = self._put_batch(batch)
+                batch = self._put_batch(batch, shard=True)
                 if marks is not None:
                     marks("upload")
                 steps.append(self._train_step(batch, generator, marks))
@@ -720,10 +896,15 @@ class StarDistBase:
                 with torch.no_grad():
                     _, val_metrics = self._loss_and_metrics(val_batch, generator)
                 logs.update({f"val_{k}": float(v) for k, v in val_metrics.items()})
+            if n_ranks > 1:                   # every rank takes rank 0's decisions
+                shared = [logs]
+                dist.broadcast_object_list(shared, src=0, group=group)
+                logs = shared[0]
             history.append(logs)
             monitor = logs.get("val_loss", logs["loss"])
-            print(f"epoch {epoch + 1}/{epochs} - " +
-                  " - ".join(f"{k}: {v:.4f}" for k, v in logs.items()), flush=True)
+            if rank == 0:
+                print(f"epoch {epoch + 1}/{epochs} - " +
+                      " - ".join(f"{k}: {v:.4f}" for k, v in logs.items()), flush=True)
             if jsonl_path is not None:
                 with open(jsonl_path, "a") as f:
                     f.write(json.dumps({"epoch": epoch + 1, **logs}) + "\n")
@@ -733,7 +914,7 @@ class StarDistBase:
                 if val_batch is not None:
                     self._tb_log_images(tb_writer, val_batch, epoch + 1)
 
-            if self.basedir is not None:
+            if writes:
                 self.save_weights(cfg.train_checkpoint_epoch)
                 self.save_weights(cfg.train_checkpoint_last)
                 if monitor < best_ckpt:
@@ -748,9 +929,10 @@ class StarDistBase:
                     lr *= factor
                     self._set_lr(lr)
                     plateau_wait = 0
-                    print(f"ReduceLROnPlateau: reducing learning rate to {lr:g}", flush=True)
+                    if rank == 0:
+                        print(f"ReduceLROnPlateau: reducing learning rate to {lr:g}", flush=True)
 
-            if self.basedir is not None:
+            if writes:
                 # numpy's RNG state at the next epoch's boundary of the data
                 # stream (the producer may not have got there yet)
                 np_state = None
@@ -1159,50 +1341,11 @@ class StarDistBase:
         ``class_prob`` and ``class_id`` too) joined over the blocks in
         block order, coordinates in the whole image; the other keys are the
         first block's."""
-        from ..big import OBJECT_KEYS, BlockND, _grid_divisible
+        from ..big import OBJECT_KEYS
         from ..matching import relabel_sequential
 
-        n = img.ndim
-        axes = axes_check_and_normalize(axes, length=n)
-        grid = self._axes_div_by(axes)
-        axes_out = self.config.axes.replace("C", "")
-        shape_dict = dict(zip(axes, img.shape))
-        shape_out = tuple(shape_dict[a] for a in axes_out)
-
-        if context is None:
-            context = self._axes_tile_overlap(axes)
-
-        if np.isscalar(block_size):
-            block_size = n * [block_size]
-        if np.isscalar(min_overlap):
-            min_overlap = n * [min_overlap]
-        if np.isscalar(context):
-            context = n * [context]
-        block_size, min_overlap, context = list(block_size), list(min_overlap), list(context)
-        if not n == len(block_size) == len(min_overlap) == len(context):
-            raise ValueError(f"block_size, min_overlap and context need {n} values (axes {axes})")
-
-        if "C" in axes:
-            i = axes_dict(axes)["C"]
-            block_size[i] = img.shape[i]
-            min_overlap[i] = context[i] = 0
-
-        block_size = tuple(_grid_divisible(g, v, name="block_size", verbose=False)
-                           for v, g in zip(block_size, grid))
-        min_overlap = tuple(_grid_divisible(g, v, name="min_overlap", verbose=False)
-                            for v, g in zip(min_overlap, grid))
-        context = tuple(_grid_divisible(g, v, name="context", verbose=False)
-                        for v, g in zip(context, grid))
-
-        print(f"effective: block_size={block_size}, min_overlap={min_overlap}, context={context}",
-              flush=True)
-
-        for a, c, o in zip(axes, context, self._axes_tile_overlap(axes)):
-            if c < o:
-                print(f"{a}: context of {c} is small, recommended to use at least {o}", flush=True)
-
-        blocks = BlockND.cover(img.shape, axes, block_size, min_overlap, context, grid)
-
+        axes, axes_out, shape_out, _, blocks = self._big_cover(img, axes, block_size, min_overlap,
+                                                               context, verbose=True)
         if np.isscalar(labels_out) and bool(labels_out) is False:
             labels_out = None
         elif labels_out is None:
@@ -1237,6 +1380,57 @@ class StarDistBase:
         polys_all = {k: (np.concatenate(v) if k in OBJECT_KEYS else v[0])
                      for k, v in polys_all.items()}
         return labels_out, polys_all
+
+    def _big_cover(self, img, axes, block_size, min_overlap, context=None, verbose=False):
+        """The blocks (``big.BlockND.cover``) of a block-wise prediction of
+        ``img``: ``block_size``, ``min_overlap`` and ``context`` per axis of
+        ``axes`` or one for all (the channel axis whole), made divisible by
+        the network stride; ``context`` defaults to the tile overlap.
+        Returns (axes, the labels' axes, the labels' shape, the block size
+        per axis, the blocks); ``verbose`` prints the effective sizes and a
+        context below the tile overlap."""
+        from ..big import BlockND, _grid_divisible
+        n = img.ndim
+        axes = axes_check_and_normalize(axes, length=n)
+        grid = self._axes_div_by(axes)
+        axes_out = self.config.axes.replace("C", "")
+        shape_dict = dict(zip(axes, img.shape))
+        shape_out = tuple(shape_dict[a] for a in axes_out)
+
+        if context is None:
+            context = self._axes_tile_overlap(axes)
+        if np.isscalar(block_size):
+            block_size = n * [block_size]
+        if np.isscalar(min_overlap):
+            min_overlap = n * [min_overlap]
+        if np.isscalar(context):
+            context = n * [context]
+        block_size, min_overlap, context = list(block_size), list(min_overlap), list(context)
+        if not n == len(block_size) == len(min_overlap) == len(context):
+            raise ValueError(f"block_size, min_overlap and context need {n} values (axes {axes})")
+
+        if "C" in axes:
+            i = axes_dict(axes)["C"]
+            block_size[i] = img.shape[i]
+            min_overlap[i] = context[i] = 0
+
+        block_size = tuple(_grid_divisible(g, v, name="block_size", verbose=False)
+                           for v, g in zip(block_size, grid))
+        min_overlap = tuple(_grid_divisible(g, v, name="min_overlap", verbose=False)
+                            for v, g in zip(min_overlap, grid))
+        context = tuple(_grid_divisible(g, v, name="context", verbose=False)
+                        for v, g in zip(context, grid))
+
+        if verbose:
+            print(f"effective: block_size={block_size}, min_overlap={min_overlap}, "
+                  f"context={context}", flush=True)
+            for a, c, o in zip(axes, context, self._axes_tile_overlap(axes)):
+                if c < o:
+                    print(f"{a}: context of {c} is small, recommended to use at least {o}",
+                          flush=True)
+
+        blocks = BlockND.cover(img.shape, axes, block_size, min_overlap, context, grid)
+        return axes, axes_out, shape_out, block_size, blocks
 
     def _shape_inst(self, img, axes):
         """The label image's shape: the spatial axes of ``img`` in the

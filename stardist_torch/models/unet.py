@@ -50,11 +50,18 @@ _CONVS = {2: (conv3x3_hwc, conv3x3_hwc_plain), 3: (conv3x3x3_dhwc, conv3x3x3_dhw
 _TRAIN_ACTS = {"relu": F.relu, "elu": F.elu, "linear": lambda y: y}
 
 
-def dropout(h, rate, generator):
+def dropout(h, rate, generator, rows=None):
     """flax's ``nn.Dropout``: keep with probability 1 - rate (drawn from
-    ``generator``), scale the kept values by 1 / (1 - rate)."""
+    ``generator``), scale the kept values by 1 / (1 - rate). ``rows`` =
+    (slice, batch size): ``h`` holds those rows of a batch, and gets their
+    rows of the whole batch's mask (a data-parallel rank's share)."""
     keep_prob = 1.0 - rate
-    keep = torch.rand(h.shape, generator=generator, device=h.device) < keep_prob
+    if rows is None:
+        keep = torch.rand(h.shape, generator=generator, device=h.device) < keep_prob
+    else:
+        sl, batch = rows
+        keep = torch.rand((batch,) + tuple(h.shape[1:]), generator=generator,
+                          device=h.device)[sl] < keep_prob
     return torch.where(keep, h / keep_prob, torch.zeros((), dtype=h.dtype, device=h.device))
 
 
@@ -78,13 +85,14 @@ class ConvBlock(nn.Module):
         conv = self.plain if plain else self.kernel
         return conv(h, self.weight, self.bias, self.act)
 
-    def train_forward(self, h, generator=None):
-        """Training route: float32 (B, C, *sp) -> (B, Cout, *sp)."""
+    def train_forward(self, h, generator=None, rows=None):
+        """Training route: float32 (B, C, *sp) -> (B, Cout, *sp); ``rows`` as
+        in :func:`dropout`."""
         nd = self.weight.dim() - 2
         w = self.weight.permute(nd + 1, nd, *range(nd))             # (Cout, C, 3, ...)
         y = _TRAIN_ACTS[self.act]((F.conv2d if nd == 2 else F.conv3d)(h, w, self.bias, padding=1))
         if self.dropout > 0:
-            y = dropout(y, self.dropout, generator)
+            y = dropout(y, self.dropout, generator, rows)
         return y
 
 
@@ -433,10 +441,11 @@ class StarDistNet(nn.Module):
             prob_class = torch.softmax(pc, dim=0).view(self.n_classes + 1, *sp)
         return prob, dist, prob_class
 
-    def train_forward(self, x, generator=None):
+    def train_forward(self, x, generator=None, rows=None):
         """Training route: x (B, *sp, C_in) float32 -> prob (B, *sp', 1),
         dist (B, *sp', R), with autograd. ``generator`` draws the dropout
-        masks (on x's device)."""
+        masks (on x's device); ``rows`` = (slice, batch size) when ``x`` is
+        a data-parallel rank's rows of a batch (see :func:`dropout`)."""
         nd = self.n_dim
         pool = F.max_pool2d if nd == 2 else F.max_pool3d
 
@@ -455,7 +464,7 @@ class StarDistNet(nn.Module):
             base = self._resnet(h)
         else:
             def conv(blk, h):
-                return blk.train_forward(h, generator)
+                return blk.train_forward(h, generator, rows)
             base = self._walk(h, conv, lambda h, p: pool(h, p) if any(v > 1 for v in p) else h,
                               up, lambda a, b: torch.cat([a, b], dim=1))
         feat, feat_c = self._features(base, conv)

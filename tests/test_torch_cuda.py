@@ -723,3 +723,30 @@ def test_predict_instances_big_on_card(cuda_device):
     assert lab.max() == len(det["prob"]) == len(det["class_id"]) == len(det["class_prob"])
     lab_1, _ = demo.predict_instances(img)
     assert matching(lab_1, lab, thresh=0.5).accuracy >= 0.98
+
+
+def test_sharded_big_on_card(cuda_device):
+    """predict_instances_big_sharded with two slots on the card: every
+    block through the kernels, labels the block-wise call's."""
+    from stardist_torch.parallel import predict_instances_big_sharded
+    img, _ = _nuclei((640, 600), 300, 2)
+    model = StarDist2D(None, "2D_demo", "models/examples", device=cuda_device)
+    kw = dict(block_size=256, min_overlap=64, context=32)
+    want, dw = model.predict_instances_big(img, "YX", **kw)
+    n_conv, n_raster = tconv.KERNEL.launches, trt.KERNEL.launches
+    timings = {}
+    got, dg = predict_instances_big_sharded(model, img, "YX", devices=[cuda_device] * 2,
+                                            timings=timings, **kw)
+    n_blocks = timings["blocks"]
+    assert trt.KERNEL.launches - n_raster == n_blocks == 16 and timings["batches"] == 8
+    assert tconv.KERNEL.launches - n_conv == n_blocks * len(model.net.conv_blocks())
+    assert matching(want, got, thresh=0.99).accuracy == 1.0 and len(dg["prob"]) == len(dw["prob"])
+
+
+def test_dp_step_on_card(cuda_device):
+    """One data-parallel step on two gloo ranks sharing the card, against
+    one process on the whole batch (dryrun_multichip)."""
+    from stardist_torch.parallel import dryrun_multichip
+    out = dryrun_multichip(2, device="cuda", timeout=300)
+    assert out["backend"] == ("nccl" if torch.cuda.device_count() >= 2 else "gloo")
+    assert out["rows_per_rank"] == [1, 1] and out["max_grad_err"] <= 1e-4
