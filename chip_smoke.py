@@ -1,6 +1,6 @@
 """Smoke run of stardist_torch on one CUDA card.
 
-    python3 chip_smoke.py [--phases bcdefghijklmnopqrstu]
+    python3 chip_smoke.py [--phases bcdefghijklmnopqrstuv]
 
 Phases (each prints one line; any failed check exits non-zero):
   (a) the card's name and power limit; build the four CUDA kernels from
@@ -185,9 +185,32 @@ Phases (each prints one line; any failed check exits non-zero):
       and held against the card: star distances (grid 1 and 2) and the
       survivors' labels exactly, the NMS keep flags of (e)'s candidates
       equal. The Keras HDF5 import is not driven here (no h5py on the
-      card's machine); the phase says so.
+      card's machine); the phase says so;
+  (v) the interop surface on the card: (e)'s 2048^2 field written as a
+      uint16 tiff and run through the prediction CLI
+      (stardist_torch.scripts.predict2d: make_parser(2), run(args,
+      StarDist2D, 2)) with 2D_demo, untiled and with --n_tiles 2 2: the
+      label file read back exactly the in-process predict_instances of
+      normalize(img, 1, 99.8), the walls (host clock) and the conv, pair and
+      raster launches (each nonzero); the 3D CLI with 3D_demo on a
+      64x128x128 crop of (h)'s field, equal too, with its conv3d launches;
+      predict_sparse(device_dist=True) on (e)'s field: dist a CUDA tensor
+      whose rows, prob and points are exactly device_dist=False's; one
+      predict_instances at 1024^2 inside core.profiling.trace, in a fresh
+      process (trace_child): the Chrome trace names the conv, pair and
+      raster kernels' __global__ functions;
+      Timer laps with device_sync; data.test_image_nuclei_2d through
+      2D_demo on the card, AP@0.5 against its mask, against the CPU port's
+      call at the card's precision, bf16 (matching accuracy >= 0.99), and
+      in f32 (printed); then, each only where its package
+      is installed (importlib.util.find_spec): export_TF (the SavedModel's
+      output within FWD_TOL of the card's predict; TensorFlow kept on the
+      host), export_bioimageio + import_bioimageio (the imported model's
+      predict on the card exactly the exported one's) and render_label.
+      Where imageio is missing, the CLI's _imread / _imwrite are swapped
+      for np.load / np.save here (never a CLI option); the line says so.
 The line before the last is the kernels' JSON record (the launches of
-(e), (h), (p), (q), (r), (s), (t) and (u)); the last line is
+(e), (h), (p), (q), (r), (s), (t), (u) and (v)); the last line is
 {"ok": true, "device": {...}}. With --phases, only (a) and the named phases
 run (e.g. --phases k to time the tiled call alone), and neither line is
 printed.
@@ -248,7 +271,8 @@ RANK_TIMEOUT = 600               # (s), (t): seconds for a spawn of ranks to end
 DP_STEPS = 5                     # (t): steps of the 2-rank and the one-process training
 DP_GRAD_TOL = 1e-4   # (t) first-step gradients, 2 ranks vs one process, of their largest |grad|
 DP_LOSS_RTOL = 1e-4  # (t) losses, 2 ranks vs one process
-ALL_PHASES = "bcdefghijklmnopqrstu"  # (a) runs always
+CLI3D_SHAPE = (64, 128, 128)     # (v): the 3D CLI's crop of (h)'s field
+ALL_PHASES = "bcdefghijklmnopqrstuv"  # (a) runs always
 # one H100 SXM (NVIDIA's data sheet, dense, at the 700 W limit): bf16 tensor
 # cores, f32 outside them, HBM3
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -2666,6 +2690,246 @@ def phase_u(dev, kernels, StarDist2D):
     return launches
 
 
+def as_uint16(img):
+    """A synthetic field as a microscope writes it: uint16 counts."""
+    return np.clip(img * 4000 + 1000, 0, 65535).astype(np.uint16)
+
+
+def cli_run(predict2d, argv, Model, ndim, kernels, conv, model, n_calls, read):
+    """One run of the CLI on the card with the launch counts set to 0 just
+    before it and read just after: (the label file read back with
+    ``read(path, ndim)``, the returned labels, details, wall seconds,
+    launches)."""
+    args = predict2d.make_parser(ndim).parse_args(argv)
+    reset_launches(kernels)
+    conv.KERNEL3D.launches = 0
+    t0 = time.perf_counter()
+    lab, det = predict2d.run(args, Model, ndim)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if ndim == 2:
+        launches = read_launches(kernels, model, n_calls)
+    else:
+        launches = {"conv3d": conv.KERNEL3D.launches}
+        n_conv = len(model.net.conv_blocks()) * n_calls
+        check(launches["conv3d"] == n_conv,
+              f"(v) 3D CLI: conv3d launches {launches['conv3d']} != {n_conv}")
+    name = os.path.splitext(os.path.basename(args.input))[0] + ".labels.tif"
+    return read(os.path.join(args.outdir, name), ndim), lab, det, wall, launches
+
+
+def trace_child(trace_dir):
+    """(v)'s traced call, run by phase_v in a process of its own: 2D_demo's
+    predict_instances on the CMP_SIZE^2 field once to warm up, then once
+    inside core.profiling.trace(trace_dir); prints the profiled seconds."""
+    from stardist_torch.core.profiling import trace
+    from stardist_torch.models import StarDist2D
+    model = StarDist2D(None, "2D_demo", "models/examples")
+    img, _ = synthetic_nuclei((CMP_SIZE, CMP_SIZE), seed=123)
+    model.predict_instances(img)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with trace(trace_dir):
+        model.predict_instances(img)
+    print(json.dumps({"profiled_s": time.perf_counter() - t0}))
+
+
+def phase_v(dev, kernels, conv, matching, StarDist2D, StarDist3D):
+    """The interop surface on the card: the CLI (2D untiled and tiled, 3D),
+    predict_sparse(device_dist=True), profiling, data and, where their
+    packages are installed, export_TF, bioimage.io and render_label."""
+    import importlib.util
+    import shutil
+    import tempfile
+    import zipfile
+    from stardist_torch.core.normalize import normalize
+    from stardist_torch.core.profiling import Timer
+    from stardist_torch.data import test_image_nuclei_2d
+    from stardist_torch.scripts import predict2d
+    t_phase = time.perf_counter()
+    found = {m: importlib.util.find_spec(m) is not None
+             for m in ("imageio", "tensorflow", "yaml", "matplotlib")}
+    os.makedirs("build", exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_v_", dir="build")
+    saved_io = predict2d._imread, predict2d._imwrite
+    if not found["imageio"]:                 # here only; never a CLI option
+        predict2d._imread = lambda path, ndim=2: np.load(path)
+        predict2d._imwrite = lambda path, arr: np.save(path, arr)
+    ext = ".tif" if found["imageio"] else ".npy"
+
+    def write_input(name, arr):
+        path = os.path.join(work, name + ext)
+        predict2d._imwrite(path, arr)
+        return path
+
+    def read_output(path, ndim):
+        return predict2d._imread(path, ndim) if found["imageio"] else np.load(path + ".npy")
+
+    launches = {"conv": 0, "pair": 0, "raster": 0, "conv3d": 0}
+    lines = []
+    try:
+        model = StarDist2D(None, "2D_demo", "models/examples", device=dev)
+        img, lbl = synthetic_nuclei((E2E_SIZE, E2E_SIZE), seed=123)
+        u16 = as_uint16(img)
+        x = normalize(u16, 1, 99.8)
+        src = write_input("field2d", u16)
+        for n_tiles in (None, (2, 2)):
+            argv = ["-i", src, "-o", os.path.join(work, f"out_{n_tiles}"), "-m", "2D_demo",
+                    "--modeldir", "models/examples"]
+            argv += ["--n_tiles", "2", "2"] if n_tiles else []
+            # tiled: the 4 tiles and the receptive field's 2 forwards (the CLI's
+            # model is new, so it measures its tile overlap once)
+            got, lab, det, wall, n = cli_run(predict2d, argv, StarDist2D, 2, kernels, conv,
+                                             model, 6 if n_tiles else 1, read_output)
+            want, det_in = model.predict_instances(x, n_tiles=n_tiles)
+            check(got.dtype == np.uint16 and got.shape == img.shape and got.max() > 0,
+                  f"(v) 2D CLI n_tiles={n_tiles}: label file {got.dtype} {got.shape}")
+            check(np.array_equal(got, want) and np.array_equal(lab, want),
+                  f"(v) 2D CLI n_tiles={n_tiles}: labels differ from the in-process call")
+            check(np.array_equal(det["points"], det_in["points"]),
+                  f"(v) 2D CLI n_tiles={n_tiles}: survivors differ")
+            for k in n:
+                launches[k] += n[k]
+            ap = matching(lbl, got, thresh=0.5).accuracy
+            lines.append(f"2D CLI {E2E_SIZE}^2 n_tiles={n_tiles}: labels exactly the "
+                         f"in-process call's ({int(got.max())} objects, AP@0.5 {ap:.4f}), wall "
+                         f"{wall:.2f} s, launches {n}")
+
+        model3 = StarDist3D(None, "3D_demo", "models/examples", device=dev)
+        img3, _ = synthetic_nuclei_3d(E2E3D_SHAPE, seed=3)
+        u16_3 = as_uint16(img3[tuple(slice(0, s) for s in CLI3D_SHAPE)])
+        src3 = write_input("field3d", u16_3)
+        argv = ["-i", src3, "-o", os.path.join(work, "out3d"), "-m", "3D_demo", "--modeldir",
+                "models/examples"]
+        from stardist_torch.scripts import predict3d
+        check(predict3d.run is predict2d.run, "(v) the 3D CLI runs predict2d.run")
+        got, lab, det, wall, n = cli_run(predict2d, argv, StarDist3D, 3, kernels, conv,
+                                         model3, 1, read_output)
+        want, _ = model3.predict_instances(normalize(u16_3, 1, 99.8))
+        check(got.shape == CLI3D_SHAPE and got.max() > 0 and np.array_equal(got, want),
+              "(v) 3D CLI: labels differ from the in-process call")
+        launches["conv3d"] += n["conv3d"]
+        lines.append(f"3D CLI {'x'.join(map(str, CLI3D_SHAPE))}: labels exactly the "
+                     f"in-process call's ({int(got.max())} objects), wall {wall:.2f} s, "
+                     f"launches {n}")
+
+        prob, dist, points = model.predict_sparse(x, device_dist=True)
+        prob0, dist0, points0 = model.predict_sparse(x)
+        check(isinstance(dist, torch.Tensor) and dist.is_cuda
+              and dist.device.type == model.device.type, "(v) device_dist: dist not on the card")
+        check(np.array_equal(dist.cpu().numpy(), dist0) and np.array_equal(prob, prob0)
+              and np.array_equal(points, points0), "(v) device_dist=True != device_dist=False")
+        lines.append(f"predict_sparse(device_dist=True) {E2E_SIZE}^2: dist a CUDA tensor "
+                     f"{tuple(dist.shape)} on {dist.device}, rows, prob and points exactly "
+                     f"device_dist=False's")
+
+        # the trace is taken in a fresh process: in a full run of this script
+        # on an H100, a trace taken here after (a)-(u) held the pair and
+        # raster kernels' events but none of the conv kernel's, where in a
+        # process that had run (v) alone, or (e) and (v), it held all three
+        trace_dir = os.path.join(work, "trace")
+        here = os.path.dirname(os.path.abspath(__file__))
+        child = subprocess.run(
+            [sys.executable, "-c", f"import sys; sys.path.insert(0, {here!r}); import chip_smoke; "
+                                   f"chip_smoke.trace_child({trace_dir!r})"],
+            capture_output=True, text=True, timeout=600)
+        check(child.returncode == 0, f"(v) the traced process failed: {child.stderr[-2000:]}")
+        t_trace = json.loads(child.stdout.strip().splitlines()[-1])["profiled_s"]
+        img1, _ = synthetic_nuclei((CMP_SIZE, CMP_SIZE), seed=123)
+        files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+        check(len(files) == 1, f"(v) trace: {files}")
+        with open(os.path.join(trace_dir, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+        kern = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+        named = {k: sum(k in e for e in kern) for k in ("conv_kernel", "pair_kernel",
+                                                       "raster_kernel")}
+        check(all(named.values()), f"(v) the trace names no launch of {named}; its kernel "
+                                   f"events ({len(kern)}): {sorted(set(kern))[:12]}")
+        timer = Timer()                 # each lap ends in device_sync of what it boxed
+        for _ in range(3):
+            with timer(f"predict_instances {CMP_SIZE}^2"):
+                model.predict_instances(img1)
+            with timer(f"dense predict {CMP_SIZE}^2 (tensors on the card)") as box:
+                box.append(model._predict(img1))
+        laps = {k: [round(v * 1e3, 2) for v in vs] for k, vs in timer.laps.items()}
+        lines.append(f"trace of one predict_instances {CMP_SIZE}^2 in a fresh process "
+                     f"({t_trace:.2f} s profiled, "
+                     f"{os.path.getsize(os.path.join(trace_dir, files[0])) / 1e6:.1f} MB, "
+                     f"{len(kern)} kernel events): launches named {named}; Timer laps ms {laps}")
+
+        img_d, mask_d = test_image_nuclei_2d(return_mask=True)
+        xd = normalize(img_d, 1, 99.8)
+        lab_d, _ = model.predict_instances(xd)
+        # the CPU port at the card's precision (bf16 plain convs), and in f32:
+        # on this 48-object image bf16 drops one object against f32, on the
+        # CPU alone too (accuracy 0.979), so the check holds like with like
+        acc = {}
+        for dtype in ("bfloat16", "float32"):
+            lab_c, _ = StarDist2D(None, "2D_demo", "models/examples", device="cpu",
+                                  inference_dtype=dtype).predict_instances(xd)
+            acc[dtype] = matching(lab_c, lab_d, thresh=0.5).accuracy
+        ap_d = matching(mask_d, lab_d, thresh=0.5).accuracy
+        check(acc["bfloat16"] >= 0.99,
+              f"(v) data image: card vs CPU (bf16) accuracy {acc['bfloat16']} < 0.99")
+        lines.append(f"data.test_image_nuclei_2d {img_d.shape}: AP@0.5 {ap_d:.4f} against its "
+                     f"mask ({int(lab_d.max())} objects, {int(mask_d.max())} true), card vs CPU "
+                     f"accuracy {acc['bfloat16']:.4f} (CPU in bf16), {acc['float32']:.4f} "
+                     f"(CPU in f32)")
+
+        ran = []
+        if found["tensorflow"]:
+            import tensorflow as tf
+            tf.config.set_visible_devices([], "GPU")   # TensorFlow's ops on the host
+            t0 = time.perf_counter()
+            z = model.export_TF(fname=os.path.join(work, "TF_SavedModel.zip"))
+            t_tf = time.perf_counter() - t0
+            with zipfile.ZipFile(z) as zz:
+                zz.extractall(os.path.join(work, "saved_model"))
+            out = tf.saved_model.load(os.path.join(work, "saved_model"))(
+                tf.constant(xd[None, ..., None])).numpy()[0]
+            prob_c, dist_c = model.predict(xd)
+            g = model.config.grid
+            e_prob = float(np.abs(out[::g[0], ::g[1], 0] - prob_c).max())
+            e_dist = float(np.abs(np.maximum(out[::g[0], ::g[1], 1:], 1e-3) - dist_c).max()
+                           / max(1.0, float(np.abs(dist_c).max())))
+            check(e_prob <= FWD_TOL and e_dist <= FWD_TOL,
+                  f"(v) export_TF: prob {e_prob:.2e}, dist {e_dist:.2e} > {FWD_TOL}")
+            ran.append(f"export_TF ({t_tf:.1f} s; SavedModel vs the card's predict: prob "
+                       f"{e_prob:.2e}, dist {e_dist:.2e} of |dist|max)")
+        if found["yaml"]:
+            from stardist_torch.bioimageio_utils import export_bioimageio, import_bioimageio
+            t0 = time.perf_counter()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")   # "TF SavedModel bundle not included"
+                zb = export_bioimageio(model, os.path.join(work, "bioimageio"))
+            imported = import_bioimageio(zb, os.path.join(work, "bioimageio_imported"))
+            t_bio = time.perf_counter() - t0
+            check(imported.device.type == "cuda", "(v) import_bioimageio: not on the card")
+            same = all(np.array_equal(a, b) for a, b in zip(imported.predict(xd),
+                                                             model.predict(xd)))
+            check(same, "(v) import_bioimageio: predict differs from the exported model's")
+            with zipfile.ZipFile(zb) as zz:
+                tf_bundle = "TF_SavedModel.zip" in zz.namelist()
+            ran.append(f"export_bioimageio + import_bioimageio ({t_bio:.1f} s; predict exactly "
+                       f"the exported model's; TF bundle included: {tf_bundle})")
+        if found["matplotlib"]:
+            from stardist_torch.plot import render_label
+            rgba = render_label(lab_d, img=xd)
+            check(rgba.shape == lab_d.shape + (4,) and np.isfinite(rgba).all(),
+                  "(v) render_label")
+            ran.append("render_label")
+        lines.append(f"optional packages found {found}; ran: {'; '.join(ran) or 'none'}")
+    finally:
+        predict2d._imread, predict2d._imwrite = saved_io
+        shutil.rmtree(work, ignore_errors=True)
+    io_note = ("imageio tiffs" if found["imageio"] else
+               "imageio is not installed: the CLI's _imread/_imwrite swapped for "
+               "np.load/np.save in this script")
+    print(f"(v) interop on the card ({io_note}): " + "; ".join(lines) + f"; launches {launches}; "
+          f"the phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=ALL_PHASES,
@@ -2761,6 +3025,9 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "u" in phases:
         more.append(phase_u(dev, kernels, StarDist2D))
+        torch.cuda.empty_cache()
+    if "v" in phases:
+        more.append(phase_v(dev, kernels, conv, matching, StarDist2D, StarDist3D))
     if phases != set(ALL_PHASES):
         return 0
     launches["conv3d"] = launches3d

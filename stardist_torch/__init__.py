@@ -26,22 +26,44 @@ weight imports: Keras HDF5 files of upstream StarDist's model zoo
 host library (:mod:`.lib`, built with g++) is the test oracle and the C
 embedding ABI; no model path calls it.
 
-This package imports torch, numpy and scipy only.
+The interop surface: the prediction CLI (:mod:`.scripts`,
+``stardist-torch-predict2d`` / ``-predict3d``), ``export_TF`` (a zipped
+TF SavedModel for the Fiji plugin), bioimage.io export and import
+(:mod:`.bioimageio_utils`; each package imports the other's zip), the
+bundled test images (:mod:`.data`), the plotting helpers (:mod:`.plot`),
+profiling (:mod:`.core.profiling`) and the flat namespace of the JAX
+package's ``__init__`` below.
+
+This package imports torch, numpy and scipy only; the optional packages
+(imageio, matplotlib, yaml, tensorflow, h5py) are imported inside the
+functions that need them.
 """
 from .version import __version__
 from .matching import matching, matching_dataset
 from .models import Config2D, Config3D, StarDist2D, StarDist3D
-from .nms import non_maximum_suppression_3d, non_maximum_suppression_3d_sparse
-from .geometry import (dist_to_coord3D, export_to_obj_file3D, polyhedron_to_label,
-                       relabel_image_stardist3D, star_dist3D)
+from .nms import (non_maximum_suppression, non_maximum_suppression_3d,
+                  non_maximum_suppression_3d_sparse, non_maximum_suppression_sparse)
+from .utils import (calculate_extents, edt_prob, export_imagej_rois, fill_label_holes,
+                    gputools_available, mask_to_categorical, sample_points)
+from .geometry import (dist_to_coord, dist_to_coord3D, export_to_obj_file3D, polygons_to_label,
+                       polyhedron_to_label, ray_angles, relabel_image_stardist,
+                       relabel_image_stardist3D, star_dist, star_dist3D)
 from .rays3d import (Rays_Base, Rays_Cartesian, Rays_Explicit, Rays_GoldenSpiral, Rays_Octo,
                      Rays_SubDivide, Rays_Tetra, rays_from_json, reorder_faces)
-from .utils import edt_prob, mask_to_categorical
+from .sample_patches import sample_patches
+from .plot.plot import _draw_polygons, draw_polygons, random_label_cmap
+from .plot.render import render_label, render_label_pred
+from .bioimageio_utils import export_bioimageio, import_bioimageio
 
 __all__ = ["__version__", "matching", "matching_dataset", "Config2D", "Config3D",
-           "StarDist2D", "StarDist3D", "non_maximum_suppression_3d",
-           "non_maximum_suppression_3d_sparse", "dist_to_coord3D", "export_to_obj_file3D",
-           "polyhedron_to_label", "relabel_image_stardist3D", "star_dist3D", "Rays_Base",
-           "Rays_Cartesian", "Rays_Explicit", "Rays_GoldenSpiral", "Rays_Octo",
-           "Rays_SubDivide", "Rays_Tetra", "rays_from_json", "reorder_faces", "edt_prob",
-           "mask_to_categorical"]
+           "StarDist2D", "StarDist3D", "non_maximum_suppression",
+           "non_maximum_suppression_sparse", "non_maximum_suppression_3d",
+           "non_maximum_suppression_3d_sparse", "edt_prob", "fill_label_holes", "sample_points",
+           "calculate_extents", "export_imagej_rois", "gputools_available",
+           "mask_to_categorical", "star_dist", "polygons_to_label", "relabel_image_stardist",
+           "ray_angles", "dist_to_coord", "star_dist3D", "polyhedron_to_label",
+           "relabel_image_stardist3D", "dist_to_coord3D", "export_to_obj_file3D", "Rays_Base",
+           "Rays_Explicit", "Rays_Cartesian", "Rays_SubDivide", "Rays_Tetra", "Rays_Octo",
+           "Rays_GoldenSpiral", "rays_from_json", "reorder_faces", "sample_patches",
+           "random_label_cmap", "draw_polygons", "render_label", "render_label_pred",
+           "export_bioimageio", "import_bioimageio"]

@@ -1118,14 +1118,16 @@ class StarDistBase:
         ``show_tile_progress`` shows nothing, as in the reference;
         ``max_candidates`` keeps the top-K of each tile (of the padded
         image when it is one tile), with a warning when there were more, as
-        the reference's default route does; ``device_dist`` is not
-        ported."""
-        if device_dist:
-            raise NotImplementedError("predict_sparse(device_dist=True) is not ported: "
-                                      "predict_instances keeps the candidates on the device")
-        return tuple(t.cpu().numpy() for t in self._predict_sparse(
-            img, prob_thresh, axes, normalizer, n_tiles, b, max_candidates=max_candidates,
-            fold_padding=False))
+        the reference's default route does. ``device_dist=True`` is the
+        reference's device route: in one tile the padding leaves the mask
+        before the top-K (``fold_padding``) and ``dist`` stays a tensor on
+        ``self.device`` (a CUDA tensor on the card), the rest numpy; tiled,
+        everything is numpy, as in the reference (base.py:1444-1460)."""
+        out = self._predict_sparse(img, prob_thresh, axes, normalizer, n_tiles, b,
+                                   max_candidates=max_candidates, fold_padding=device_dist)
+        one_tile = n_tiles is None or np.prod(n_tiles) == 1
+        return tuple(t if device_dist and one_tile and i == 1 else t.cpu().numpy()
+                     for i, t in enumerate(out))
 
     def _predict_sparse(self, img, prob_thresh=None, axes=None, normalizer=None,
                         n_tiles=None, b=2, timings=None, max_candidates=None,
@@ -1624,3 +1626,15 @@ class StarDistBase:
     def _render_survivors(self, img_shape, disti, points, probi, return_labels=True,
                           fetch=True, prob_class=None):
         raise NotImplementedError()
+
+    def export_TF(self, fname=None, single_output=True, upsample_grid=True):
+        """Export the model as a zipped TF SavedModel for the CSBDeep/StarDist
+        Fiji plugin (reference base.py:1113-1158; ``stardist_tpu``'s
+        ``export_TF``): a plain-TF-op replay of the network with its
+        weights, optional grid upsampling (sparse transposed-conv prob +
+        nearest dist), optional single concatenated output; ``fname``
+        defaults to ``logdir/TF_SavedModel.zip``. Needs ``tensorflow``.
+        Returns the path of the written zip."""
+        from .export_tf import export_tf_saved_model
+        return export_tf_saved_model(self, fname=fname, single_output=single_output,
+                                     upsample_grid=upsample_grid)

@@ -4,6 +4,7 @@ stardist_tpu/utils.py), and the threshold search of
 from __future__ import annotations
 
 import datetime
+import os
 import struct
 import time
 import warnings
@@ -18,6 +19,17 @@ from scipy.ndimage import binary_fill_holes, distance_transform_edt, find_object
 from scipy.optimize import minimize_scalar
 
 from .matching import _check_label_array, matching_dataset
+
+
+def path_absolute(path_relative):
+    """Absolute path to a package resource."""
+    return os.path.join(os.path.abspath(os.path.dirname(__file__)), path_relative)
+
+
+def abspath(root, relpath):
+    root = Path(root)
+    base = root if root.is_dir() else root.parent
+    return str((base / relpath).absolute())
 
 
 def _is_power_of_2(i):
@@ -394,3 +406,9 @@ def export_imagej_rois(fname, polygons, set_position=True, subpixel=True,
                     poly[1], poly[0], pos=(pos if set_position else None), subpixel=subpixel
                 )
                 roizip.writestr(f"{pos:03d}_{i:03d}.roi", roi)
+
+
+def gputools_available():
+    """Kept for API parity with the reference, which returns False: OpenCL
+    (gputools) is not used; the port's kernels are CUDA."""
+    return False

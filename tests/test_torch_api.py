@@ -2,7 +2,8 @@
 names, order and defaults of the positional parameters, the port's own
 ones keyword-only. A reference parameter that is not ported yet raises when
 it is set; one that only affects speed or printing is taken and changes
-nothing. ``predict_sparse`` returns numpy, as the reference does. A float32
+nothing. ``predict_sparse`` returns numpy, as the reference does (with
+``device_dist=True`` its dist stays on the device, as the reference's). A float32
 net sends its convs to the plain versions, by its type."""
 import importlib
 import inspect
@@ -91,7 +92,8 @@ def test_signature_matches_reference(name):
 
 
 # the modules whose shared public names the walk compares
-WALKED = ("", ".utils", ".geometry", ".nms", ".matching", ".big", ".models")
+WALKED = ("", ".utils", ".geometry", ".nms", ".matching", ".big", ".models", ".plot", ".data",
+          ".bioimageio_utils", ".core.profiling", ".scripts.predict2d")
 # shared names whose positional parameters differ on purpose, with the reason
 WALK_EXCEPTIONS = {
     # the internal ops functions the nms modules import: the reference's take
@@ -136,7 +138,10 @@ def test_public_signatures_walk():
     keys = {k for k, _, _ in pairs}
     assert len(pairs) > 100 and set(WALK_EXCEPTIONS) <= keys
     for key in (".utils:edt_prob", ".utils:mask_to_categorical", ".models:StarDist2D.__init__",
-                ".big:BlockND.cover", ".models:StarDist3D.predict_instances_big"):
+                ".big:BlockND.cover", ".models:StarDist3D.predict_instances_big",
+                ".models:StarDist2D.export_TF", ".plot:render_label_pred",
+                ".data:test_image_nuclei_3d", ".bioimageio_utils:import_bioimageio",
+                ".core.profiling:Timer.__init__", ".scripts.predict2d:run"):
         assert key in keys, key
     bad = []
     for key, port, ref in pairs:
@@ -246,7 +251,6 @@ def test_speed_and_printing_parameters_change_nothing():
 
 UNPORTED = {
     "predict_instances(overlap_label)": ("predict_instances", dict(overlap_label=-1)),
-    "predict_sparse(device_dist)": ("predict_sparse", dict(device_dist=True)),
 }
 
 
@@ -274,6 +278,7 @@ PORTED = {
     "predict_instances(nms_kwargs)": ("predict_instances", dict(nms_kwargs={"use_bbox": False})),
     "predict_instances(return_predict)": ("predict_instances", dict(return_predict=True)),
     "predict_sparse(max_candidates)": ("predict_sparse", dict(max_candidates=10)),
+    "predict_sparse(device_dist)": ("predict_sparse", dict(device_dist=True)),
     "polygons_to_label(thr)": ("polygons_to_label", dict(thr=0.6)),
     "polygons_to_label(scale_dist)": ("polygons_to_label", dict(scale_dist=(2, 1))),
     "dist_to_coord(scale_dist)": ("dist_to_coord", dict(scale_dist=(1, 0.5))),
@@ -286,7 +291,10 @@ def test_ported_parameter_matches_reference(tm, jm, img, case):
     stardist_tpu's same call: the geometry exactly; the pipeline's labels
     within the tolerance of test_torch_predict.py (survivors within one,
     matching accuracy >= 0.98: the f32 convs differ in their last bits);
-    max_candidates with the reference's warning and the same top-K."""
+    max_candidates with the reference's warning and the same top-K;
+    device_dist with dist left on the model's device, the same candidates
+    in the same order and the rows within the f32 tolerance of
+    test_predict_sparse_returns_numpy_like_the_reference."""
     import warnings
     from stardist_torch.matching import matching
     fn, kw = PORTED[case]
@@ -306,6 +314,16 @@ def test_ported_parameter_matches_reference(tm, jm, img, case):
     with warnings.catch_warnings():
         warnings.simplefilter("error" if "max_candidates" not in str(kw) else "ignore")
         warnings.filterwarnings("ignore", "Setting sparse to False")
+        if fn == "predict_sparse" and "device_dist" in kw:
+            got = tm.predict_sparse(img, **kw)
+            want = [np.asarray(a) for a in jm.predict_sparse(img, **kw)]
+            assert isinstance(got[1], torch.Tensor) and got[1].device == tm.device
+            assert isinstance(got[0], np.ndarray) and isinstance(got[2], np.ndarray)
+            assert len(got[0]) == len(want[0]) > 10
+            np.testing.assert_array_equal(got[2], want[2])
+            np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-5)
+            np.testing.assert_allclose(got[1].numpy(), want[1], rtol=1e-4, atol=1e-4)
+            return
         if fn == "predict_sparse":
             with pytest.warns(UserWarning, match="exceeds max_candidates"):
                 got = tm.predict_sparse(img, **kw)

@@ -750,3 +750,46 @@ def test_dp_step_on_card(cuda_device):
     out = dryrun_multichip(2, device="cuda", timeout=300)
     assert out["backend"] == ("nccl" if torch.cuda.device_count() >= 2 else "gloo")
     assert out["rows_per_rank"] == [1, 1] and out["max_grad_err"] <= 1e-4
+
+
+def test_predict_sparse_device_dist_on_card(cuda_device):
+    """predict_sparse(device_dist=True) on the card: dist a CUDA tensor on
+    the model's device whose rows, with prob and points, are exactly
+    device_dist=False's."""
+    img, _ = _nuclei((300, 330), 60, 4)
+    model = StarDist2D(None, "2D_demo", "models/examples", device=cuda_device)
+    prob, dist, points = model.predict_sparse(img, device_dist=True)
+    prob0, dist0, points0 = model.predict_sparse(img)
+    assert isinstance(dist, torch.Tensor) and dist.device.type == "cuda"
+    assert len(prob) > 50 and np.array_equal(dist.cpu().numpy(), dist0)
+    assert np.array_equal(prob, prob0) and np.array_equal(points, points0)
+
+
+def test_cli_2d_on_card(cuda_device, tmp_path, monkeypatch):
+    """The 2D CLI on the card (the constructor's default device): the label
+    file equals the in-process predict_instances exactly, through the conv,
+    pair and raster kernels. Where imageio is not installed, the CLI's
+    reader and writer are swapped for np.load / np.save here."""
+    import importlib.util
+    from stardist_torch.core.normalize import normalize
+    from stardist_torch.scripts import predict2d
+    img, _ = _nuclei((512, 512), 120, 5)
+    img = np.clip(img * 1000 + 100, 0, 65535).astype(np.uint16)
+    if importlib.util.find_spec("imageio") is None:
+        monkeypatch.setattr(predict2d, "_imread", lambda p, ndim=2: np.load(p))
+        monkeypatch.setattr(predict2d, "_imwrite", lambda p, a: np.save(p, a, allow_pickle=False))
+        src, out = tmp_path / "f.npy", tmp_path / "f.labels.tif.npy"
+        np.save(src, img)
+    else:
+        import imageio.v2 as imageio
+        src, out = tmp_path / "f.tif", tmp_path / "f.labels.tif"
+        imageio.imwrite(src, img)
+    args = predict2d.make_parser(2).parse_args(["-i", str(src), "-o", str(tmp_path), "-m",
+                                                "2D_demo", "--modeldir", "models/examples"])
+    n = (tconv.KERNEL.launches, tpo.KERNEL.launches, trt.KERNEL.launches)
+    predict2d.run(args, StarDist2D, 2)
+    assert all(k.launches > n0 for k, n0 in zip((tconv.KERNEL, tpo.KERNEL, trt.KERNEL), n))
+    got = np.load(out) if out.suffix == ".npy" else predict2d._imread(out)
+    model = StarDist2D(None, "2D_demo", "models/examples")
+    want, _ = model.predict_instances(normalize(img, 1, 99.8))
+    assert got.dtype == np.uint16 and want.max() > 10 and np.array_equal(got, want)

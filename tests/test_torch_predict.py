@@ -91,20 +91,34 @@ def test_resizer_filter_points():
 
 
 def test_port_imports_no_jax():
-    """Importing stardist_torch and predicting (predict_instances, tiled
-    and untiled, and predict_instances_device) leave jax, flax and
+    """Importing stardist_torch with its whole flat namespace and the
+    interop modules (the CLI, profiling, bioimage.io, the TF export) and
+    predicting (predict_instances, tiled and untiled,
+    predict_instances_device, the CLI's run) leave jax, flax and
     stardist_tpu out of sys.modules."""
     code = textwrap.dedent("""
+        import functools
         import sys
+        import tempfile
         import numpy as np
         import torch
         torch.set_num_threads(2)
+        from stardist_torch import *  # noqa: F401,F403
         from stardist_torch import StarDist2D
+        from stardist_torch.core import profiling  # noqa: F401
+        from stardist_torch.models import export_tf  # noqa: F401
+        from stardist_torch import bioimageio_utils  # noqa: F401
+        from stardist_torch.scripts import predict2d, predict3d  # noqa: F401
         m = StarDist2D(None, "2D_demo", "models/examples", device="cpu")
         img = np.random.RandomState(0).rand(64, 64).astype(np.float32)
         m.predict_instances(img)
         m.predict_instances(img, n_tiles=(2, 2))
         m.predict_instances_device(img)
+        d = tempfile.mkdtemp()
+        predict2d._imwrite(d + "/in.tif", (img * 1000).astype(np.uint16))
+        args = predict2d.make_parser(2).parse_args(
+            ["-i", d + "/in.tif", "-o", d, "-m", "2D_demo", "--modeldir", "models/examples"])
+        predict2d.run(args, functools.partial(StarDist2D, device="cpu"), 2)
         bad = [k for k in sys.modules
                if k.split(".")[0] in ("jax", "jaxlib", "flax", "stardist_tpu")]
         assert not bad, bad
