@@ -1,6 +1,6 @@
 """Smoke run of stardist_torch on one CUDA card.
 
-    python3 chip_smoke.py [--phases bcdefghijklmnopqrstuv]
+    python3 chip_smoke.py [--phases bcdefghijklmnopqrstuvw]
 
 Phases (each prints one line; any failed check exits non-zero):
   (a) the card's name and power limit; build the four CUDA kernels from
@@ -208,9 +208,29 @@ Phases (each prints one line; any failed check exits non-zero):
       host), export_bioimageio + import_bioimageio (the imported model's
       predict on the card exactly the exported one's) and render_label.
       Where imageio is missing, the CLI's _imread / _imwrite are swapped
-      for np.load / np.save here (never a CLI option); the line says so.
+      for np.load / np.save here (never a CLI option); the line says so;
+  (w) the network options: the published Config2D() (grid 1) at 2048^2
+      with seeded weights, seeded batch-norm statistics (mean in +-0.1,
+      var in [0.5, 2]) and a seeded dist bias of 6-12 pixels (so that the
+      polygons overlap; seed_network_options), as a relu net, with batch
+      norm (folded into the conv kernel's weights), with gelu (after the
+      kernel's linear output) and with 5x5 kernels (cuDNN, no conv-kernel
+      launch): each forward kernel path vs plain (FWD_TOL) and its time
+      against the relu net's by CUDA events, the conv launches of one
+      forward (batch norm: the relu net's count); predict_instances on
+      (e)'s field at the prob_thresh that keeps ~8,000 candidates of the
+      card's map (2,000-20,000 held), its launches (pair and raster
+      nonzero), and a 512^2 crop card vs CPU at bf16 (matching >= 0.99;
+      f32 printed); the 3D ResNet of upstream's notebook with batch norm,
+      (1, 3, 3) kernels and he_uniform on a 64x128x128 crop of (h)'s
+      volume (cuDNN; ~800 candidates), a 32x64x64 crop card vs CPU at bf16
+      (>= 0.9); training Config2D(grid=(2, 2), unet_activation="swish",
+      unet_kernel_size=(5, 5)) at 256^2 x 4: one batch card vs CPU (TF32
+      off: loss within METRIC_RTOL) and 1 x 5 steps of StarDist2D.train
+      (finite losses); the batch-norm net's train raising
+      NotImplementedError.
 The line before the last is the kernels' JSON record (the launches of
-(e), (h), (p), (q), (r), (s), (t), (u) and (v)); the last line is
+(e), (h), (p), (q), (r), (s), (t), (u), (v) and (w)); the last line is
 {"ok": true, "device": {...}}. With --phases, only (a) and the named phases
 run (e.g. --phases k to time the tiled call alone), and neither line is
 printed.
@@ -272,7 +292,15 @@ DP_STEPS = 5                     # (t): steps of the 2-rank and the one-process 
 DP_GRAD_TOL = 1e-4   # (t) first-step gradients, 2 ranks vs one process, of their largest |grad|
 DP_LOSS_RTOL = 1e-4  # (t) losses, 2 ranks vs one process
 CLI3D_SHAPE = (64, 128, 128)     # (v): the 3D CLI's crop of (h)'s field
-ALL_PHASES = "bcdefghijklmnopqrstuv"  # (a) runs always
+W_SIZE = 2048                    # (w): the forwards' and predict_instances' field side
+W_CMP = (512, 500)               # (w): card vs CPU crop side, candidates aimed at
+W_CANDIDATES = (2_000, 8_000, 20_000)  # (w): a 2D call's least, aimed and most candidates
+W_TRAIN = (4, 1024)              # (w): training fields (count, side)
+W_TRAIN_STEPS = 5                # (w)
+W3D_SHAPE = (64, 128, 128)       # (w): the ResNet's crop of (h)'s volume
+W3D_CMP = ((32, 64, 64), 40)     # (w): its card vs CPU crop, candidates aimed at
+W3D_CANDIDATES = (100, 800, 3_000)  # (w): the 3D call's least, aimed and most candidates
+ALL_PHASES = "bcdefghijklmnopqrstuvw"  # (a) runs always
 # one H100 SXM (NVIDIA's data sheet, dense, at the 700 W limit): bf16 tensor
 # cores, f32 outside them, HBM3
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -2930,6 +2958,291 @@ def phase_v(dev, kernels, conv, matching, StarDist2D, StarDist3D):
     return launches
 
 
+def seed_network_options(net, seed, dist_bias):
+    """Seeded values on a seeded net: every batch norm non-trivial (scale in
+    [0.8, 1.2], bias and mean in +-0.1, var in [0.5, 2]) and the dist
+    head's bias drawn from ``dist_bias`` (pixels), so that the polygons
+    have a nucleus's size and overlap (a random net's distances are near 0,
+    clamped at 1e-3). The prob map stays a random net's: nearly flat, so
+    that its candidates reorder under a last-bit change of prob, and
+    w_predict holds the labels of the card's candidates (and a trained
+    net's whole call: identity_batch_norm)."""
+    from stardist_torch.models.unet import BatchNorm
+    g = torch.Generator().manual_seed(seed)
+
+    def draw(t, lo, hi):
+        t.copy_((torch.rand(t.shape, generator=g) * (hi - lo) + lo).to(t.device))
+
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, BatchNorm):
+                for t, lo, hi in ((m.scale, 0.8, 1.2), (m.bias, -0.1, 0.1), (m.mean, -0.1, 0.1),
+                                  (m.var, 0.5, 2.0)):
+                    draw(t, lo, hi)
+        draw(net.head_dist.bias, *dist_bias)
+
+
+def w_forward(net, x, conv):
+    """One network option's forward on the card: the kernel path (the conv
+    kernel's launches in one forward) against the plain path at FWD_TOL,
+    and both times by CUDA events."""
+    conv.KERNEL.launches = 0
+    prob, dist = net(x)
+    torch.cuda.synchronize()
+    n = conv.KERNEL.launches
+    prob_p, dist_p = net(x, plain=True)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(dist).all()) and bool(torch.isfinite(prob).all()),
+          "(w) non-finite forward output")
+    e_prob = (prob - prob_p).abs().max().item()
+    e_dist = ((dist - dist_p).abs().max() / dist_p.abs().max().clamp_min(1.0)).item()
+    check(e_prob < FWD_TOL and e_dist < FWD_TOL,
+          f"(w) kernel forward disagrees with plain: prob {e_prob}, dist {e_dist}")
+    del prob, dist, prob_p, dist_p
+    return dict(launches=n, ms=cuda_ms(lambda: net(x)),
+                plain_ms=cuda_ms(lambda: net(x, plain=True)), e_prob=e_prob, e_dist=e_dist)
+
+
+def w_threshold(model, img, n):
+    """The prob_thresh that keeps about ``n`` candidates of ``model``'s prob
+    map of ``img``: a quantile of the map without its border, where
+    predict_instances takes no candidate (b = 2) and a random net's most
+    extreme values sit."""
+    inner = model.predict(img)[0][(slice(2, -2),) * model.config.n_dim]
+    return float(np.quantile(inner, 1 - n / inner.size))
+
+
+def w_predict(model, Model, img, kernels, matching, n_range, cmp, acc_min=None):
+    """predict_instances on the card at the prob_thresh that keeps about
+    ``n_range[1]`` candidates (the net's weights are seeded; the call must
+    have from ``n_range[0]`` to ``n_range[2]``), the launches of that call
+    (reset before it, read after it); then ``cmp`` = (crop shape,
+    candidates aimed at), the crop on the card against the CPU at the
+    card's precision (bf16 plain twins): the dense prediction within
+    FWD_TOL, the card's candidates through the card's and the CPU's NMS and
+    raster (labels exactly equal), and each side's whole call (matching
+    accuracy, held to ``acc_min`` where given: a random net's clustered
+    candidates reorder under a last-bit change of prob, so that a seeded
+    net's labels are held through the shared candidates). Returns
+    (launches, text)."""
+    n_lo, n_want, n_hi = n_range
+    thresh = w_threshold(model, img, n_want)
+    model.predict_instances(img, prob_thresh=thresh)           # warm-up
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    labels, det = model.predict_instances(img, prob_thresh=thresh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    c = det["nms_counters"]
+    check(n_lo <= c.get("n_candidates", 0) <= n_hi,
+          f"(w) {c.get('n_candidates', 0)} candidates at prob_thresh {thresh}: not in "
+          f"[{n_lo}, {n_hi}]")
+    check(labels.shape == img.shape and labels.max() > 0, "(w) empty label image")
+    shape, n_cmp = cmp
+    crop = img[tuple(slice(0, n) for n in shape)]
+    thresh_c = w_threshold(model, crop, n_cmp)
+    cpu = on_cpu(model, Model, "bfloat16")
+    (p_g, d_g), (p_c, d_c) = model.predict(crop), cpu.predict(crop)
+    e_prob = float(np.abs(p_g - p_c).max())
+    e_dist = float(np.abs(d_g - d_c).max() / max(1.0, float(np.abs(d_c).max())))
+    check(e_prob < FWD_TOL and e_dist < FWD_TOL,
+          f"(w) card vs CPU (bf16) dense prediction: prob {e_prob}, dist {e_dist}")
+    prob, dist, points = model._predict_sparse(crop, prob_thresh=thresh_c)
+    lab_s, det_s = model._instances_from_prediction(crop.shape, prob, dist, points)
+    lab_sc = cpu._instances_from_prediction(crop.shape, prob.cpu(), dist.cpu(), points.cpu())[0]
+    check(np.array_equal(lab_s, lab_sc), "(w) the card's candidates: labels, card != CPU")
+    lab_g = model.predict_instances(crop, prob_thresh=thresh_c)[0]
+    t1 = time.perf_counter()
+    lab_c = cpu.predict_instances(crop, prob_thresh=thresh_c)[0]
+    t_cpu = time.perf_counter() - t1
+    acc = matching(lab_c, lab_g, thresh=0.5).accuracy
+    if acc_min is not None:
+        check(acc >= acc_min, f"(w) card vs CPU (bf16) labels on the crop: accuracy {acc} < "
+                              f"{acc_min}")
+    t = det["timings_s"]
+    text = (f"predict_instances {'x'.join(map(str, img.shape))} at prob_thresh {thresh:.6f}: wall "
+            f"{wall * 1e3:.1f} ms (" + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in t.items())
+            + f" ms), {c['n_candidates']} candidates, {c['n_pairs']} bbox pairs, "
+            f"{int(labels.max())} objects; launches {launches}; {'x'.join(map(str, shape))} crop "
+            f"card vs CPU at bf16: dense prob {e_prob:.2e}, dist {e_dist:.2e}; the card's "
+            f"{len(prob)} candidates through both NMS and rasters: labels equal "
+            f"({int(lab_s.max())} objects); whole calls at prob_thresh {thresh_c:.6f}: matching "
+            f"accuracy {acc:.4f} ({'held >= ' + str(acc_min) if acc_min else 'printed'}; "
+            f"{int(lab_g.max())} / {int(lab_c.max())} objects, CPU call {t_cpu:.1f} s)")
+    return launches, text
+
+
+def identity_batch_norm(StarDist2D, Config2D, dev, seed):
+    """2D_demo with batch norm in its backbone: seeded statistics (mean in
+    +-0.1, var in [0.5, 2]) and the scale and bias that undo them, so that
+    the net computes 2D_demo's function through a non-trivial fold; and
+    2D_demo itself, both on ``dev``."""
+    from stardist_torch.models.unet import BN_EPS, BatchNorm
+    demo = StarDist2D(None, "2D_demo", "models/examples", device=dev)
+    m = StarDist2D(Config2D(**dict(demo.config.to_dict(), unet_batch_norm=True)), basedir=None,
+                   device=dev)
+    missing, unexpected = m.net.load_state_dict(demo.net.state_dict(), strict=False)
+    check(not unexpected and missing and all(".bn." in k for k in missing),
+          f"(w) batch-norm 2D_demo: missing {missing}, unexpected {unexpected}")
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for bn in m.net.modules():
+            if isinstance(bn, BatchNorm):
+                c = bn.mean.shape[0]
+                mean = torch.rand(c, generator=g) * 0.2 - 0.1
+                var = torch.rand(c, generator=g) * 1.5 + 0.5
+                for t, v in ((bn.mean, mean), (bn.var, var), (bn.scale, (var + BN_EPS).sqrt()),
+                             (bn.bias, mean)):
+                    t.copy_(v.to(t.device))
+    m.thresholds = demo.thresholds
+    return m, demo
+
+
+def w_demo(model, demo, Model, img, lbl, kernels, matching):
+    """The batch-norm 2D_demo against 2D_demo on (e)'s field (labels, AP@0.5
+    against the field's truth, conv launches) and against the CPU at the
+    card's precision on a W_CMP crop. Returns (launches, text)."""
+    lab_d = demo.predict_instances(img)[0]
+    model.predict_instances(img)                        # warm-up
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    labels, det = model.predict_instances(img)
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    check(launches["conv"] == len(demo.net.conv_blocks()) and launches["pair"] > 0
+          and launches["raster"] > 0, f"(w) batch-norm 2D_demo: launches {launches}")
+    same = matching(lab_d, labels, thresh=0.5).accuracy
+    ap = matching(lbl, labels, thresh=0.5).accuracy
+    check(same >= 0.99 and ap >= 0.95,
+          f"(w) batch-norm 2D_demo: against 2D_demo {same}, AP@0.5 {ap}")
+    crop = img[:W_CMP[0], :W_CMP[0]]
+    lab_g = model.predict_instances(crop)[0]
+    lab_c = on_cpu(model, Model, "bfloat16").predict_instances(crop)[0]
+    acc = matching(lab_c, lab_g, thresh=0.5).accuracy
+    check(acc >= 0.99, f"(w) batch-norm 2D_demo: card vs CPU (bf16) accuracy {acc} < 0.99")
+    t = det["timings_s"]
+    return launches, (
+        f"predict_instances {W_SIZE}^2: {int(labels.max())} objects ({int(lbl.max())} true), "
+        f"AP@0.5 {ap:.4f}, matching against 2D_demo's labels {same:.4f}; stages "
+        + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in t.items()) + f" ms; launches {launches} "
+        f"(2D_demo's convs {len(demo.net.conv_blocks())}); {W_CMP[0]}^2 crop card vs CPU at "
+        f"bf16: matching accuracy {acc:.4f} ({int(lab_g.max())} / {int(lab_c.max())} objects)")
+
+
+def phase_w(dev, smi, kernels, conv, matching, StarDist2D, Config2D, StarDist3D, Config3D):
+    """The network options that the port took last: batch norm (folded into
+    the conv kernel's weights), gelu (after the kernel's linear output), a
+    5x5 U-Net (cuDNN), the notebook's 3D ResNet with batch norm, (1, 3, 3)
+    kernels and he-uniform; training a swish 5x5 net, and a batch-norm net's
+    training refused."""
+    from stardist_torch.models.model2d import StarDistData2D
+    t_phase = time.perf_counter()
+    launches = {"conv": 0, "pair": 0, "raster": 0, "conv3d": 0}
+    counted = dict(kernels, conv3d=conv.KERNEL3D)
+    img, lbl = synthetic_nuclei((W_SIZE, W_SIZE), seed=123)
+    x = torch.from_numpy(img[:, :, None]).to(dev)
+    tag = f"[{smi}]"
+
+    base = StarDist2D(Config2D(), basedir=None, device=dev)
+    seed_network_options(base.net, 40, (6.0, 12.0))
+    fwd_base = w_forward(base.net, x, conv)
+    check(fwd_base["launches"] == len(base.net.conv_blocks()), "(w) relu net: conv launches")
+    del base
+    models = {}
+    for name, kw, seed in (("batch_norm", dict(unet_batch_norm=True), 41),
+                           ("gelu", dict(unet_activation="gelu"), 42),
+                           ("kernel 5x5", dict(unet_kernel_size=(5, 5)), 43)):
+        m = StarDist2D(Config2D(**kw), basedir=None, device=dev)
+        seed_network_options(m.net, seed, (6.0, 12.0))
+        models[name] = m
+        f = w_forward(m.net, x, conv)
+        n_conv = len(m.net.conv_blocks())
+        check(f["launches"] == n_conv, f"(w) {name}: conv launches {f['launches']} != {n_conv}")
+        if name == "batch_norm":
+            check(f["launches"] == fwd_base["launches"],
+                  "(w) the batch-norm net launched another count of convs than the relu net's")
+        got, text = w_predict(m, StarDist2D, img, counted, matching, W_CANDIDATES,
+                              ((W_CMP[0],) * 2, W_CMP[1]))
+        check(got["pair"] > 0 and got["raster"] > 0 and got["conv"] == n_conv,
+              f"(w) {name}: launches {got}, {n_conv} convs on the kernel")
+        for k in launches:
+            launches[k] += got[k]
+        note = (" (no conv on the kernel: cuDNN's F.conv2d, as the reference runs XLA's; conv "
+                "launches 0)" if n_conv == 0 else "")
+        print(f"(w) {name} Config2D() {tag}{note}: forward {W_SIZE}^2 kernel path "
+              f"{f['ms']:.2f} ms ({f['ms'] - fwd_base['ms']:+.2f} ms against the relu net's "
+              f"{fwd_base['ms']:.2f} ms, same seeds), plain {f['plain_ms']:.2f} ms, prob max abs "
+              f"diff {f['e_prob']:.2e}, dist max rel diff {f['e_dist']:.2e}, conv launches "
+              f"{f['launches']} (the relu net's {fwd_base['launches']}); {text}", flush=True)
+        torch.cuda.empty_cache()
+
+    demo_bn, demo = identity_batch_norm(StarDist2D, Config2D, dev, 45)
+    got, text = w_demo(demo_bn, demo, StarDist2D, img, lbl, counted, matching)
+    for k in launches:
+        launches[k] += got[k]
+    print(f"(w) batch norm on 2D_demo's trained weights {tag}: {text}", flush=True)
+    del demo_bn, demo
+    torch.cuda.empty_cache()
+
+    img3, lbl3 = synthetic_nuclei_3d(E2E3D_SHAPE, seed=3)          # (h)'s volume
+    vol = img3[:W3D_SHAPE[0], :W3D_SHAPE[1], :W3D_SHAPE[2]]
+    cfg3 = train3d_config([lbl3], "resnet", Config3D, resnet_batch_norm=True,
+                          resnet_kernel_size=(1, 3, 3), resnet_kernel_init="he_uniform")
+    m3 = StarDist3D(cfg3, basedir=None, device=dev)
+    seed_network_options(m3.net, 44, (2.5, 5.0))
+    got, text = w_predict(m3, StarDist3D, vol, counted, matching, W3D_CANDIDATES, W3D_CMP)
+    check(got["conv3d"] == 0, "(w) the ResNet launched the conv3d kernel")
+    for k in launches:
+        launches[k] += got[k]
+    print(f"(w) 3D ResNet, upstream's notebook (96 rays, grid {cfg3.grid}) with batch norm, "
+          f"(1, 3, 3) kernels, he_uniform {tag} (cuDNN's F.conv3d, as the reference runs XLA's; "
+          f"conv3d launches 0): {text}", flush=True)
+    del m3
+    torch.cuda.empty_cache()
+
+    n, side = W_TRAIN
+    fields = [synthetic_nuclei((side, side), seed=700 + i) for i in range(n)]
+    X, Y = [f[0] for f in fields], [f[1] for f in fields]
+    cfg = Config2D(grid=(2, 2), unet_activation="swish", unet_kernel_size=(5, 5),
+                   train_tensorboard=False)
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    try:
+        set_tf32(False)
+        data = StarDistData2D(X, Y, batch_size=cfg.train_batch_size, n_rays=cfg.n_rays, length=1,
+                              patch_size=cfg.train_patch_size, grid=cfg.grid,
+                              foreground_prob=cfg.train_foreground_only)
+        cmp_text = train_vs_cpu(dev, StarDist2D, cfg, data)
+        m = StarDist2D(cfg, basedir=None, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = m.train(X, Y, validation_data=(X[:1], Y[:1]), seed=21, epochs=1,
+                    steps_per_epoch=W_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    losses = np.asarray(h.steps["loss"])
+    check(len(losses) == W_TRAIN_STEPS and np.isfinite(losses).all()
+          and np.isfinite(h.history["val_loss"]).all(), f"(w) training losses: {losses}")
+    refused = None
+    try:
+        models["batch_norm"].train(X, Y, validation_data=(X[:1], Y[:1]), epochs=1,
+                                   steps_per_epoch=1)
+    except NotImplementedError as e:                   # the refusal this phase checks
+        refused = str(e)
+    check(refused is not None, "(w) training the batch-norm net did not raise NotImplementedError")
+    print(f"(w) training Config2D(grid=(2, 2), unet_activation='swish', unet_kernel_size=(5, 5)) "
+          f"at {cfg.train_patch_size} x {cfg.train_batch_size} {tag}, TF32 off: one batch card "
+          f"vs CPU: {cmp_text}; StarDist2D.train 1 x {W_TRAIN_STEPS} steps on {n} fields of "
+          f"{side}^2: losses {[round(float(v), 5) for v in losses]}, val_loss "
+          f"{h.history['val_loss']}, {wall:.1f} s with validation and start-up; the batch-norm "
+          f"net's train raised NotImplementedError ({refused[:60]}...); the phase "
+          f"{time.perf_counter() - t_phase:.1f} s, launches {launches}", flush=True)
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=ALL_PHASES,
@@ -3028,6 +3341,10 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "v" in phases:
         more.append(phase_v(dev, kernels, conv, matching, StarDist2D, StarDist3D))
+        torch.cuda.empty_cache()
+    if "w" in phases:
+        more.append(phase_w(dev, smi, kernels, conv, matching, StarDist2D, Config2D, StarDist3D,
+                            Config3D))
     if phases != set(ALL_PHASES):
         return 0
     launches["conv3d"] = launches3d

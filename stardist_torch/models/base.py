@@ -56,8 +56,8 @@ from ..parallel.mesh import (broadcast_numpy_rng, broadcast_parameters, data_par
 from ..sample_patches import get_valid_inds
 from ..utils import _is_power_of_2, grid_divisible_patch_size, optimize_threshold
 from . import losses as L
-from .unet import StarDistNet
-from .weights import (load_flax_checkpoint, params_from_flax, params_to_flax,
+from .unet import BN_TRAINING, StarDistNet
+from .weights import (load_flax_variables, params_from_flax, params_to_flax,
                       save_flax_checkpoint)
 
 INIT_SEED = 42           # a fresh model's weights, as the reference's
@@ -434,15 +434,19 @@ class StarDistBase:
         return ([f for f in files if prefer in f.name] + files)[0]
 
     def load_weights(self, name="weights_best.h5"):
-        """Load a flax msgpack checkpoint (the reference's ``.h5`` files) or
-        a Keras HDF5 weights file (upstream StarDist's; read by
+        """Load a flax msgpack checkpoint (the reference's ``.h5`` files:
+        ``params``, and ``batch_stats`` for a batch-norm net) or a Keras
+        HDF5 weights file (upstream StarDist's; read by
         :meth:`_import_keras_h5`, which needs ``h5py``): ``name`` in the
         model folder, or an absolute path."""
         path = Path(name) if Path(name).is_absolute() else self.logdir / name
         with open(path, "rb") as f:
             keras = f.read(4) == b"\x89HDF"
-        sd = self._import_keras_h5(path) if keras else params_from_flax(
-            self.net, load_flax_checkpoint(path))
+        if keras:
+            sd = self._import_keras_h5(path)
+        else:
+            tree = load_flax_variables(path)
+            sd = params_from_flax(self.net, tree["params"], tree.get("batch_stats"))
         self.net.load_state_dict(sd)
         self.net.to(self.device)
 
@@ -538,8 +542,9 @@ class StarDistBase:
         return params_from_flax(self.net, params)
 
     def save_weights(self, name="weights_best.h5"):
-        """Write the weights into the model folder as the reference's flax
-        checkpoint, which both packages load."""
+        """Write the weights (and a batch-norm net's statistics) into the
+        model folder as the reference's flax checkpoint, which both packages
+        load."""
         save_flax_checkpoint(self.logdir / name, self.net)
 
     # -- training -------------------------------------------------------------
@@ -575,7 +580,11 @@ class StarDistBase:
         under a process group, the data parallelism (reference base.py:
         733-740): every rank takes rank 0's weights, and when the world size
         divides ``train_batch_size`` each step runs this rank's rows of the
-        batch (``_batch_rows``), else the whole batch on every rank."""
+        batch (``_batch_rows``), else the whole batch on every rank. A
+        batch-norm net raises ``NotImplementedError``: the reference cannot
+        train one (``unet.BN_TRAINING``)."""
+        if self.net.batch_norm:
+            raise NotImplementedError(BN_TRAINING)
         if optimizer is None:
             optimizer = torch.optim.Adam(self.net.parameters(), lr=self.config.train_learning_rate,
                                          betas=(0.9, 0.999), eps=1e-8)

@@ -8,14 +8,18 @@ i.e. *sparse* upsampling — and dist via nearest-neighbor upsampling).
 
 The port's network is PyTorch, so this module *replays* the exact
 `StarDistNet` topology with plain TensorFlow ops, loading the flax-named
-parameter tree that ``models.weights.params_to_flax`` builds from the net.
+variable tree that ``models.weights.flax_variables`` builds from the net.
 Plain TF ops (conv/pool/concat) keep the SavedModel loadable by stock TF
 runtimes (Fiji's TF-Java, deepimagej).
 
 The replay mirrors flax's deterministic auto-naming (per-parent, per-class
 counters) to index the parameter tree; tests/test_torch_export.py holds
 its SavedModel to the JAX package's and to the port's forward. Batch norm
-is left out until the port's net has it.
+replays as the reference's does, from the net's ``batch_stats``, and so
+fails where the reference's replay fails: it gives the grid pre-pooling and
+feature convs a batch norm that neither net has, and raises
+``KeyError('BatchNorm_0')`` for a batch-norm net with either
+(tests/test_torch_netconfigs.py).
 """
 from __future__ import annotations
 
@@ -73,6 +77,13 @@ def _conv(tf, x, p, strides=None):
     return y
 
 
+def _batch_norm(tf, x, p, stats, eps=1e-5):
+    inv = 1.0 / np.sqrt(stats["var"] + eps)
+    scale = p.get("scale", np.ones_like(stats["var"])) * inv
+    bias = p.get("bias", 0.0) - stats["mean"] * scale
+    return x * tf.constant(scale.astype(np.float32)) + tf.constant(bias.astype(np.float32))
+
+
 def _max_pool(tf, x, pool):
     return tf.nn.max_pool(x, ksize=list(pool), strides=list(pool), padding="VALID")
 
@@ -84,19 +95,26 @@ def _upsample_nearest(tf, x, factors):
     return x
 
 
-def _conv_block(tf, x, params, activation):
-    return _act(tf, activation)(_conv(tf, x, params["Conv_0"]))
+def _conv_block(tf, x, params, stats, activation, batch_norm):
+    namer = _Namer()
+    x = _conv(tf, x, params[namer("Conv")])
+    if batch_norm:
+        name = namer("BatchNorm")
+        x = _batch_norm(tf, x, params.get(name, {}), stats[name])
+    return _act(tf, activation)(x)
 
 
-def _unet_backbone(tf, x, params, net):
+def _unet_backbone(tf, x, params, stats, net):
     """Replays the reference's UNetBackbone.__call__ (stardist_tpu/models/unet.py:104-127)."""
     namer = _Namer()
+    bn = net.unet_batch_norm
     act, last_act = net.unet_activation, net.unet_last_activation
     base, depth, n_conv = net.unet_n_filter_base, net.unet_n_depth, net.unet_n_conv_per_depth
     pool = tuple(net.unet_pool)
 
     def block(x, activation):
-        return _conv_block(tf, x, params[namer("ConvBlock")], activation)
+        name = namer("ConvBlock")
+        return _conv_block(tf, x, params[name], stats.get(name, {}), activation, bn)
 
     skips = []
     for n in range(depth):
@@ -117,12 +135,22 @@ def _unet_backbone(tf, x, params, net):
     return x
 
 
-def _resnet_block(tf, x, params, pool, n_conv, activation, filters):
+def _resnet_block(tf, x, params, stats, pool, n_conv, activation, batch_norm,
+                  filters):
     namer = _Namer()
     act = _act(tf, activation)
-    y = act(_conv(tf, x, params[namer("Conv")], strides=list(pool)))
+
+    def maybe_bn(y):
+        if batch_norm:
+            name = namer("BatchNorm")
+            return _batch_norm(tf, y, params.get(name, {}), stats[name])
+        return y
+
+    y = _conv(tf, x, params[namer("Conv")], strides=list(pool))
+    y = act(maybe_bn(y))
     for i in range(n_conv - 1):
         y = _conv(tf, y, params[namer("Conv")])
+        y = maybe_bn(y)
         if i < n_conv - 2:
             y = act(y)
     if any(p > 1 for p in pool) or x.shape[-1] != filters:
@@ -130,22 +158,28 @@ def _resnet_block(tf, x, params, pool, n_conv, activation, filters):
     return act(x + y)
 
 
-def build_tf_forward(net, params):
+def build_tf_forward(net, params, batch_stats=None):
     """Return a python function x -> (prob, dist[, prob_class]) of TF tensors
     replaying the reference's StarDistNet.__call__
     (stardist_tpu/models/unet.py:200-281) with flax-named float32 numpy
-    params; ``net`` is the model's config (it carries the network's
-    fields)."""
+    params and, for a batch-norm net, its ``batch_stats`` tree; ``net`` is
+    the model's config (it carries the network's fields)."""
     tf = _tf()
+    stats = batch_stats or {}
     nd = net.n_dim
     grid = tuple(net.grid)
+    # the backbone's flag on every top-level block, as the reference's replay
+    # has it (stardist_tpu/models/export_tf.py:177-180)
+    bn = net.unet_batch_norm if net.backbone == "unet" else net.resnet_batch_norm
 
     def forward(x):
         namer = _Namer()
         p = params
+        s = stats
 
         def conv_block(x, activation):
-            return _conv_block(tf, x, p[namer("ConvBlock")], activation)
+            name = namer("ConvBlock")
+            return _conv_block(tf, x, p[name], s.get(name, {}), activation, bn)
 
         if net.backbone == "unet":
             pooled = np.ones(nd, int)
@@ -155,7 +189,8 @@ def build_tf_forward(net, params):
                 for _ in range(net.unet_n_conv_per_depth):
                     x = conv_block(x, net.unet_activation)
                 x = _max_pool(tf, x, tuple(int(q) for q in pool))
-            base = _unet_backbone(tf, x, p[namer("UNetBackbone")], net)
+            name = namer("UNetBackbone")
+            base = _unet_backbone(tf, x, p[name], s.get(name, {}), net)
             n_feat = net.net_conv_after_unet
             feat_act = net.unet_activation
         elif net.backbone == "resnet":
@@ -168,10 +203,12 @@ def build_tf_forward(net, params):
                 pooled *= pool
                 if any(q > 1 for q in pool):
                     n_filter *= 2
-                x = _resnet_block(tf, x, p[namer("ResNetBlock")],
+                name = namer("ResNetBlock")
+                x = _resnet_block(tf, x, p[name], s.get(name, {}),
                                   tuple(int(q) for q in pool),
                                   net.resnet_n_conv_per_block,
-                                  net.resnet_activation, n_filter)
+                                  net.resnet_activation, net.resnet_batch_norm,
+                                  n_filter)
             base = x
             n_feat = net.net_conv_after_resnet
             feat_act = net.resnet_activation
@@ -220,12 +257,13 @@ def export_tf_saved_model(model, fname=None, single_output=True,
         warnings.warn("multi-class mode not supported yet, removing "
                       "classification output from exported model")
 
-    from .weights import params_to_flax
+    from .weights import flax_variables
 
     nd = model.config.n_dim
     grid = tuple(model.config.grid)
     n_in = model.config.n_channel_in
-    forward = build_tf_forward(model.config, params_to_flax(model.net))
+    variables = flax_variables(model.net)
+    forward = build_tf_forward(model.config, variables["params"], variables.get("batch_stats"))
 
     spec = tf.TensorSpec([None] + [None] * nd + [n_in], tf.float32, name="input")
 

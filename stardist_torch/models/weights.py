@@ -2,12 +2,13 @@
 
 ``stardist_tpu`` saves its parameters with ``flax.serialization.to_bytes``:
 a msgpack map ``{"params": {...}}`` (the file starts with
-``\\x81\\xa6params``) whose array leaves are msgpack ext type 1, each holding
-a nested msgpack ``(shape, dtype name, raw buffer)``. :func:`msgpack_loads`
+``\\x81\\xa6params``; a batch-norm net's adds ``"batch_stats"``) whose array
+leaves are msgpack ext type 1, each holding a nested msgpack ``(shape,
+dtype name, raw buffer)``. :func:`msgpack_loads`
 decodes the subset of msgpack that flax emits and :func:`msgpack_dumps`
 writes it as msgpack's packer does; :func:`params_from_flax` maps the flax
 parameter tree onto :class:`.unet.StarDistNet`'s state dict and
-:func:`params_to_flax` back.
+:func:`params_to_flax` / :func:`flax_variables` back.
 """
 from __future__ import annotations
 
@@ -165,51 +166,59 @@ def msgpack_dumps(obj):
     return bytes(out)
 
 
-def load_flax_checkpoint(path):
-    """The parameter tree of a flax msgpack checkpoint (nested dicts of
-    numpy arrays)."""
+def load_flax_variables(path):
+    """The variable tree of a flax msgpack checkpoint: ``{"params": ...}``,
+    with ``"batch_stats"`` for a batch-norm net (nested dicts of numpy
+    arrays)."""
     with open(path, "rb") as f:
         raw = f.read()
     tree = msgpack_loads(raw)
     if not isinstance(tree, dict) or "params" not in tree:
         raise ValueError(f"{path}: not a flax checkpoint with a 'params' entry")
-    return tree["params"]
+    return tree
 
 
-def params_from_flax(net, params):
+def load_flax_checkpoint(path):
+    """The parameter tree of a flax msgpack checkpoint (nested dicts of
+    numpy arrays)."""
+    return load_flax_variables(path)["params"]
+
+
+def params_from_flax(net, params, batch_stats=None):
     """State dict of ``net`` (:class:`.unet.StarDistNet`) from a flax
-    parameter tree (numpy or array-like leaves).
+    parameter tree (numpy or array-like leaves) and, for a batch-norm net,
+    its ``batch_stats`` tree.
 
     Module names follow the flax call order. U-Net: top-level
     ``ConvBlock_i`` are the grid pre-pooling convs then the feature conv;
-    ``UNetBackbone_0/ConvBlock_j`` the backbone. ResNet: ``Conv_0`` (7^3)
-    and ``Conv_1`` (3^3), ``ResNetBlock_b/Conv_k`` (the shortcut last),
-    ``ConvBlock_0`` the feature conv. Then ``head_prob`` / ``head_dist``, the
-    1x1 heads; a multiclass net's class branch is the next top-level
-    ``ConvBlock`` (its feature conv, made after the heads) and
-    ``head_prob_class``. Conv kernels stay HWIO (3, 3, C, Cout) / DHWIO."""
+    ``UNetBackbone_0/ConvBlock_j`` the backbone, each with ``BatchNorm_0``
+    where the net has batch norm. ResNet: ``Conv_0`` (7^3) and ``Conv_1``
+    (3^3), ``ResNetBlock_b/Conv_k`` (the shortcut last) each followed by
+    ``ResNetBlock_b/BatchNorm_k`` with batch norm, ``ConvBlock_0`` the
+    feature conv. Then ``head_prob`` / ``head_dist``, the 1x1 heads; a
+    multiclass net's class branch is the next top-level ``ConvBlock`` (its
+    feature conv, made after the heads) and ``head_prob_class``. Conv
+    kernels stay HWIO (k, k, C, Cout) / DHWIO. A batch norm's ``scale`` and
+    ``bias`` are under ``params``, its ``mean`` and ``var`` under
+    ``batch_stats``."""
     def arr(p):
         return torch.from_numpy(np.array(p, np.float32))
 
-    def conv(p):
-        return arr(p["Conv_0"]["kernel"]), arr(p["Conv_0"]["bias"])
+    def leaf(tree, path):
+        for key in path.split("/"):
+            tree = tree[key]
+        return tree
 
+    if net.batch_norm and batch_stats is None:
+        raise ValueError("the net has batch norm: its batch_stats are needed")
     sd = {}
-    if net.backbone_kind == "resnet":
-        for name, p in _resnet_names(net):
-            leaf = params
-            for key in p.split("/"):
-                leaf = leaf[key]
-            sd[f"{name}.weight"], sd[f"{name}.bias"] = arr(leaf["kernel"]), arr(leaf["bias"])
-    else:
-        for i in range(len(net.top)):
-            sd[f"top.{i}.weight"], sd[f"top.{i}.bias"] = conv(params[f"ConvBlock_{i}"])
-        bb = params["UNetBackbone_0"]
-        for j in range(len(net.backbone)):
-            sd[f"backbone.{j}.weight"], sd[f"backbone.{j}.bias"] = conv(bb[f"ConvBlock_{j}"])
-        if net.feat_class is not None:
-            sd["feat_class.weight"], sd["feat_class.bias"] = conv(
-                params[f"ConvBlock_{len(net.top)}"])
+    for name, path, bn_path in _conv_names(net):
+        p = leaf(params, path)
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = arr(p["kernel"]), arr(p["bias"])
+        if bn_path is not None:
+            p, st = leaf(params, bn_path), leaf(batch_stats, bn_path)
+            sd[f"{name}.bn.scale"], sd[f"{name}.bn.bias"] = arr(p["scale"]), arr(p["bias"])
+            sd[f"{name}.bn.mean"], sd[f"{name}.bn.var"] = arr(st["mean"]), arr(st["var"])
     for head in _head_names(net):
         k = np.array(params[head]["kernel"], np.float32)
         sd[f"{head}.weight"] = torch.from_numpy(k.reshape(k.shape[-2:]).copy())
@@ -222,67 +231,82 @@ def _head_names(net):
                                          else ())
 
 
-def _resnet_names(net):
-    """(state-dict prefix, flax path) of each ResNet conv, in flax's order."""
-    out = [("stem.0", "Conv_0"), ("stem.1", "Conv_1")]
-    for b, blk in enumerate(net.blocks):
-        out += [(f"blocks.{b}.convs.{k}", f"ResNetBlock_{b}/Conv_{k}")
-                for k in range(len(blk.convs))]
-        if blk.shortcut is not None:
-            out.append((f"blocks.{b}.shortcut", f"ResNetBlock_{b}/Conv_{len(blk.convs)}"))
-    if net.feat is not None:
-        out.append(("feat", "ConvBlock_0/Conv_0"))
-    if net.feat_class is not None:
-        out.append(("feat_class", "ConvBlock_1/Conv_0"))
-    return out
-
-
-def params_to_flax(net):
-    """The flax parameter tree of ``net`` (numpy float32 leaves), in the
-    order flax creates the modules (U-Net: the grid pre-pooling convs, the
-    backbone, the feature conv; ResNet: the stem, the blocks, the feature
-    conv; then the prob and dist heads, and a multiclass net's class
-    feature conv and class head); the inverse of :func:`params_from_flax`."""
-    def arr(t):
-        return t.detach().cpu().float().numpy().copy()
-
-    def conv(blk):
-        return {"Conv_0": {"kernel": arr(blk.weight), "bias": arr(blk.bias)}}
-
-    def head(name):
-        mod = getattr(net, name)
-        return {"kernel": arr(mod.weight).reshape((1,) * net.n_dim + tuple(mod.weight.shape)),
-                "bias": arr(mod.bias)}
-
-    fc = net.feat_class
+def _conv_names(net):
+    """(state-dict prefix, flax path of the conv, flax path of its batch norm
+    or None) of each conv of ``net``, in flax's order of creation; the class
+    branch's feature conv last (flax makes it after the heads)."""
     if net.backbone_kind == "resnet":
-        params = {}
-        sd = net.state_dict()
-        for name, path in _resnet_names(net):
-            if name == "feat_class":
-                continue
-            leaf = params
-            for key in path.split("/"):
-                leaf = leaf.setdefault(key, {})
-            leaf.update(kernel=arr(sd[f"{name}.weight"]), bias=arr(sd[f"{name}.bias"]))
+        out = [("stem.0", "Conv_0", None), ("stem.1", "Conv_1", None)]
+        for b, blk in enumerate(net.blocks):
+            out += [(f"blocks.{b}.convs.{k}", f"ResNetBlock_{b}/Conv_{k}",
+                     f"ResNetBlock_{b}/BatchNorm_{k}" if conv.bn is not None else None)
+                    for k, conv in enumerate(blk.convs)]
+            if blk.shortcut is not None:
+                out.append((f"blocks.{b}.shortcut", f"ResNetBlock_{b}/Conv_{len(blk.convs)}",
+                            None))
+        if net.feat is not None:
+            out.append(("feat", "ConvBlock_0/Conv_0", None))
         n_top = 1
     else:
         n_pre = len(net.prepools) * net.n_conv
-        params = {f"ConvBlock_{i}": conv(net.top[i]) for i in range(n_pre)}
-        params["UNetBackbone_0"] = {f"ConvBlock_{j}": conv(b)
-                                    for j, b in enumerate(net.backbone)}
-        for i in range(n_pre, len(net.top)):
-            params[f"ConvBlock_{i}"] = conv(net.top[i])
+        out = [(f"top.{i}", f"ConvBlock_{i}/Conv_0", None) for i in range(n_pre)]
+        out += [(f"backbone.{j}", f"UNetBackbone_0/ConvBlock_{j}/Conv_0",
+                 f"UNetBackbone_0/ConvBlock_{j}/BatchNorm_0" if blk.bn is not None else None)
+                for j, blk in enumerate(net.backbone)]
+        out += [(f"top.{i}", f"ConvBlock_{i}/Conv_0", None) for i in range(n_pre, len(net.top))]
         n_top = len(net.top)
+    if net.feat_class is not None:
+        out.append(("feat_class", f"ConvBlock_{n_top}/Conv_0", None))
+    return out
+
+
+def flax_variables(net):
+    """The flax variable tree of ``net`` (numpy float32 leaves):
+    ``{"params": ...}``, with ``"batch_stats"`` for a batch-norm net, in
+    the order flax creates the modules (U-Net: the grid pre-pooling convs,
+    the backbone, the feature conv; ResNet: the stem, the blocks, the
+    feature conv; a batch norm after its conv; then the prob and dist
+    heads, and a multiclass net's class feature conv and class head); the
+    inverse of :func:`params_from_flax`, and the reference's layout of its
+    checkpoint files."""
+    sd = net.state_dict()
+
+    def arr(name):
+        return sd[name].detach().cpu().float().numpy().copy()
+
+    def node(tree, path):
+        for key in path.split("/"):
+            tree = tree.setdefault(key, {})
+        return tree
+
+    def head(name):
+        w = arr(f"{name}.weight")
+        return {"kernel": w.reshape((1,) * net.n_dim + w.shape), "bias": arr(f"{name}.bias")}
+
+    params, stats = {}, {}
+    convs = _conv_names(net)
+    class_conv = convs.pop() if net.feat_class is not None else None
+    for name, path, bn_path in convs:
+        node(params, path).update(kernel=arr(f"{name}.weight"), bias=arr(f"{name}.bias"))
+        if bn_path is not None:
+            node(params, bn_path).update(scale=arr(f"{name}.bn.scale"), bias=arr(f"{name}.bn.bias"))
+            node(stats, bn_path).update(mean=arr(f"{name}.bn.mean"), var=arr(f"{name}.bn.var"))
     params["head_prob"], params["head_dist"] = head("head_prob"), head("head_dist")
     if net.n_classes is not None:
-        if fc is not None:
-            params[f"ConvBlock_{n_top}"] = conv(fc)
+        if class_conv is not None:
+            name, path, _ = class_conv
+            node(params, path).update(kernel=arr(f"{name}.weight"), bias=arr(f"{name}.bias"))
         params["head_prob_class"] = head("head_prob_class")
-    return params
+    return {"params": params, **({"batch_stats": stats} if stats else {})}
+
+
+def params_to_flax(net):
+    """The flax parameter tree of ``net`` (:func:`flax_variables`'s
+    ``"params"``)."""
+    return flax_variables(net)["params"]
 
 
 def save_flax_checkpoint(path, net):
-    """Write ``net``'s parameters as the reference's checkpoint file."""
+    """Write ``net``'s variables as the reference's checkpoint file."""
     with open(path, "wb") as f:
-        f.write(msgpack_dumps({"params": params_to_flax(net)}))
+        f.write(msgpack_dumps(flax_variables(net)))

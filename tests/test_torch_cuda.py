@@ -793,3 +793,69 @@ def test_cli_2d_on_card(cuda_device, tmp_path, monkeypatch):
     model = StarDist2D(None, "2D_demo", "models/examples")
     want, _ = model.predict_instances(normalize(img, 1, 99.8))
     assert got.dtype == np.uint16 and want.max() > 10 and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("nd", [2, 3])
+@pytest.mark.parametrize("act,batch_norm", [("tanh", False), ("sigmoid", False),
+                                            ("swish", False), ("gelu", True), ("relu", True),
+                                            ("elu", True)])
+def test_conv_block_options_on_the_kernel_match_plain(cuda_device, nd, act, batch_norm):
+    """A block with an activation outside the epilogue (the kernel's linear
+    output, then the activation in bf16) or a batch norm (folded into the
+    kernel's weights and bias, once): one kernel launch per call against
+    the plain twin; the fold and the packed weights made once."""
+    from stardist_torch.models.unet import ConvBlock
+    rng = np.random.RandomState(nd * 7 + len(act))
+    blk = ConvBlock(16, 48, act, nd, batch_norm=batch_norm)
+    with torch.no_grad():
+        blk.weight.copy_(torch.from_numpy((rng.randn(*blk.weight.shape) * 0.1).astype(np.float32)))
+        blk.bias.copy_(torch.from_numpy(rng.randn(48).astype(np.float32)))
+        if batch_norm:
+            for t, lo, hi in ((blk.bn.scale, 0.8, 1.2), (blk.bn.bias, -0.1, 0.1),
+                              (blk.bn.mean, -0.1, 0.1), (blk.bn.var, 0.5, 2.0)):
+                t.copy_(torch.from_numpy(rng.uniform(lo, hi, 48).astype(np.float32)))
+    blk.to(cuda_device)
+    kernel = tconv.KERNEL if nd == 2 else tconv.KERNEL3D
+    sp = (40, 70) if nd == 2 else (6, 20, 37)
+    x = torch.from_numpy(rng.randn(*sp, 16).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    n0 = kernel.launches
+    y = blk(x)
+    y2 = blk(x)
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 2 and torch.equal(y, y2)
+    if batch_norm:
+        w = blk.bn.fold(blk.weight, blk.bias)[0]
+        assert w is blk.bn._folded[1] and len(w._conv_sm90_packed[1]) == 1
+    ref = blk(x, plain=True)
+    assert y.dtype == torch.bfloat16 and y.shape == ref.shape
+    scale = max(1.0, ref.float().abs().max().item())
+    assert (y.float() - ref.float()).abs().max().item() / scale < 1e-2
+
+
+def test_batch_norm_and_gelu_nets_on_the_kernel_match_plain(cuda_device):
+    """Small batch-norm and gelu U-Nets and a 5x5 one (cuDNN, no kernel
+    launch): the kernel path within the forward tolerance of the plain
+    path, the conv kernel launched once per 3x3 conv."""
+    from stardist_torch.models import Config2D
+    from stardist_torch.models.unet import BatchNorm, StarDistNet
+    for kw in (dict(unet_batch_norm=True), dict(unet_activation="gelu"),
+               dict(unet_kernel_size=(5, 5))):
+        net = StarDistNet(Config2D(grid=(2, 2), unet_n_depth=2, unet_n_filter_base=16,
+                                   net_conv_after_unet=64, **kw), dtype=torch.bfloat16)
+        net.init_weights(torch.Generator().manual_seed(0))
+        g = torch.Generator().manual_seed(2)
+        with torch.no_grad():
+            for m in net.modules():
+                if isinstance(m, BatchNorm):
+                    m.mean.copy_(torch.rand(m.mean.shape, generator=g) * 0.2 - 0.1)
+                    m.var.copy_(torch.rand(m.var.shape, generator=g) * 1.5 + 0.5)
+        net.to(cuda_device)
+        x = torch.rand(256, 320, 1, generator=torch.Generator().manual_seed(1)).to(cuda_device)
+        n0 = tconv.KERNEL.launches
+        prob, dist = net(x)
+        torch.cuda.synchronize()
+        assert tconv.KERNEL.launches - n0 == len(net.conv_blocks())
+        assert len(net.conv_blocks()) == (0 if "unet_kernel_size" in kw else 13)
+        prob_p, dist_p = net(x, plain=True)
+        assert (prob - prob_p).abs().max() < 2e-2
+        assert (dist - dist_p).abs().max() / dist_p.abs().max().clamp_min(1) < 2e-2

@@ -108,10 +108,20 @@ def test_forward_shapes_and_layers(grid, depth):
 
 
 def test_resnet_backbone_is_not_ported():
-    """The ResNet backbone is ported (tests/test_torch_train3d.py); its
-    batch norm and non-cubic kernels are not."""
+    """The ResNet backbone is ported (tests/test_torch_train3d.py), its
+    batch norm and non-cubic kernels too (tests/test_torch_netconfigs3d.py):
+    a batch norm after every conv of a block but the shortcut, the kernel
+    size in every block and the feature conv, the stem's 7^3 and 3^3."""
     assert len(StarDistNet(Config3D(rays=8, backbone="resnet")).resnet_convs()) == 15
+    net = StarDistNet(Config3D(rays=8, backbone="resnet", resnet_batch_norm=True,
+                               resnet_kernel_size=(1, 3, 3)))
+    convs = net.resnet_convs()
+    assert len(convs) == 15 and net.batch_norm
+    assert sum(c.bn is not None for c in convs) == 3 * len(net.blocks)
+    assert all(c.bn is None for c in list(net.stem) + [net.feat]
+               + [b.shortcut for b in net.blocks if b.shortcut is not None])
+    assert [tuple(c.weight.shape[:3]) for c in net.stem] == [(7, 7, 7), (3, 3, 3)]
+    assert all(tuple(c.weight.shape[:3]) == (1, 3, 3)
+               for b in net.blocks for c in b.convs) and net.feat.weight.shape[:3] == (1, 3, 3)
     with pytest.raises(NotImplementedError):
-        StarDistNet(Config3D(rays=8, backbone="resnet", resnet_batch_norm=True))
-    with pytest.raises(NotImplementedError):
-        StarDistNet(Config3D(rays=8, backbone="resnet", resnet_kernel_size=(1, 3, 3)))
+        net.train_forward(torch.zeros(1, 8, 8, 8, 1))

@@ -257,16 +257,19 @@ def test_relabel_on_the_device_is_relabel_sequential(case):
 
 
 def test_unported_arguments_still_raise(setup):
-    """Batch norm still raises. predict_sparse(device_dist=True), which
-    raised until it was ported, keeps dist on the model's device, its rows
-    exactly device_dist=False's (the volume pads: 16x40x40)."""
+    """predict_sparse(device_dist=True), which raised until it was ported,
+    keeps dist on the model's device, its rows exactly device_dist=False's
+    (the volume pads: 16x40x40). Batch norm, which raised until it was
+    ported, builds and serves in both backbones; its training raises (the
+    reference cannot train one)."""
     img, _, _, tm = setup
     prob, dist, points = tm.predict_sparse(img, device_dist=True)
     assert isinstance(dist, torch.Tensor) and dist.device == tm.device and len(prob) > 10
     for a, b in zip((prob, dist.numpy(), points), tm.predict_sparse(img)):
         assert np.array_equal(a, b)
-    with pytest.raises(NotImplementedError):
-        StarDist3D(Config3D(n_rays=8, unet_batch_norm=True), basedir=None, device="cpu")
-    with pytest.raises(NotImplementedError):
-        StarDist3D(Config3D(n_rays=8, backbone="resnet", resnet_batch_norm=True), basedir=None,
-                   device="cpu")
+    for kw in (dict(unet_batch_norm=True), dict(backbone="resnet", resnet_batch_norm=True)):
+        m = StarDist3D(Config3D(n_rays=8, **kw), basedir=None, device="cpu")
+        prob, dist = m.predict(img[:8, :16, :16])
+        assert prob.shape == (8, 16, 16) and np.isfinite(dist).all()
+        with pytest.raises(NotImplementedError):
+            m.prepare_for_training()

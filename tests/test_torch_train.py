@@ -241,8 +241,14 @@ def test_shape_completion_trains_on_the_host_path():
 
 
 def test_unported_and_missing_device_raise():
-    with pytest.raises(NotImplementedError):        # batch norm is not ported
-        StarDist2D(Config2D(**CFG, unet_batch_norm=True), basedir=None, device="cpu")
+    """A batch-norm net builds and serves, and refuses to train (the
+    reference cannot train one: tests/test_torch_netconfigs.py); the card
+    is the default device."""
+    m = StarDist2D(Config2D(**CFG, unet_batch_norm=True), basedir=None, device="cpu")
+    prob, dist = m.predict(np.zeros((32, 32), np.float32))
+    assert prob.shape == (16, 16) and np.isfinite(dist).all()
+    with pytest.raises(NotImplementedError):
+        m.prepare_for_training()
     if torch.cuda.is_available():
         return                                      # decided at run time: a card is there
     with pytest.raises(RuntimeError):
