@@ -1,6 +1,6 @@
 """Smoke run of stardist_torch on one CUDA card.
 
-    python3 chip_smoke.py [--phases bcdefghijklmnopqrstuvw]
+    python3 chip_smoke.py [--phases bcdefghijklmnopqrstuvwx]
 
 Phases (each prints one line; any failed check exits non-zero):
   (a) the card's name and power limit; build the four CUDA kernels from
@@ -114,7 +114,8 @@ Phases (each prints one line; any failed check exits non-zero):
       U-Net for 1 epoch x 5 steps, and predict_instances with its
       weights_best.h5 through the conv3d kernel (one launch per conv);
   (o) the rest of the 3D surface, 3D_demo on the 64x256x256 field of (h):
-      predict_instances_device with fetch=True equal to predict_instances,
+      predict_instances_device with fetch=True equal to predict_instances
+      with nms_kwargs={"samples": 10} (the reference's device lattice),
       fetch=False's CUDA tensors equal too, sparse=False equal to
       sparse=True, scale=(1, 0.5, 0.5) and overlap_label=-1; each call's
       wall and stages and the conv3d launches; on a 32x64x64 crop the
@@ -228,9 +229,25 @@ Phases (each prints one line; any failed check exits non-zero):
       unet_kernel_size=(5, 5)) at 256^2 x 4: one batch card vs CPU (TF32
       off: loss within METRIC_RTOL) and 1 x 5 steps of StarDist2D.train
       (finite losses); the batch-norm net's train raising
-      NotImplementedError.
+      NotImplementedError;
+  (x) the NMS's samples option and the prediction generators: the pair
+      kernel against its plain version at S = 3, 5, 10, 12, 24 and 32 (10^5
+      seeded random pairs at R = 32, timed beside the plain version and the
+      bound; then R = 3, 32 and 128, random and adversarial pairs with each
+      S's extent): exactly equal; 2D_demo on (e)'s 2048^2 field with
+      nms_kwargs={"samples": S}, S = 10, 12 and 16: AP@0.5 >= 0.95, S = 16
+      exactly the default call's labels, the scheduling options changing
+      no label, the NMS stage, fine pairs and pair launches; (e)'s 1024^2
+      crop, the card's candidates through the card's and the CPU's NMS and
+      raster at S = 12: labels equal; 3D_demo on (h)'s field:
+      predict_instances_device (fetch=True and fetch=False) exactly
+      predict_instances(nms_kwargs={"samples": 10}), the survivors that
+      differ from S = 12 and the walls; _predict_instances_generator on
+      (k)'s 4096^2 field with n_tiles=(2, 2): "predict", 4 x "tile", "nms"
+      and predict_instances' result; the host syncs of one device-path call
+      equal those of its generator run by hand and (j)'s count.
 The line before the last is the kernels' JSON record (the launches of
-(e), (h), (p), (q), (r), (s), (t), (u), (v) and (w)); the last line is
+(e), (h), (p), (q), (r), (s), (t), (u), (v), (w) and (x)); the last line is
 {"ok": true, "device": {...}}. With --phases, only (a) and the named phases
 run (e.g. --phases k to time the tiled call alone), and neither line is
 printed.
@@ -300,7 +317,11 @@ W_TRAIN_STEPS = 5                # (w)
 W3D_SHAPE = (64, 128, 128)       # (w): the ResNet's crop of (h)'s volume
 W3D_CMP = ((32, 64, 64), 40)     # (w): its card vs CPU crop, candidates aimed at
 W3D_CANDIDATES = (100, 800, 3_000)  # (w): the 3D call's least, aimed and most candidates
-ALL_PHASES = "bcdefghijklmnopqrstuvw"  # (a) runs always
+X_S = (3, 5, 10, 12, 24, 32)     # (x): the pair kernel's grids beside the cascade's 8 and 16
+X_R = (3, 32, 128)               # (x): rays of the exact checks
+X_SAMPLES = (10, 12, 16)         # (x): the 2D NMS's fine grid through nms_kwargs
+X_SCHEDULING = dict(dense_max=8, row_block=3, col_block=5, device_nms=True, dist_max=3.0)  # (x)
+ALL_PHASES = "bcdefghijklmnopqrstuvwx"  # (a) runs always
 # one H100 SXM (NVIDIA's data sheet, dense, at the 700 W limit): bf16 tensor
 # cores, f32 outside them, HBM3
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -586,20 +607,22 @@ def adversarial_offsets(R):
     return np.array(u, np.float32)
 
 
-def adversarial_pairs(R, dev, seed=0):
-    """A pair for each :func:`adversarial_offsets` u, both polygons centred
-    at -u (some regular), over a bbox intersection whose first sample lies
-    at the origin at S = 8 (extent 8) or at S = 16 (extent 16): the kernel
-    tests u itself and the grid's other samples about it."""
+def adversarial_pairs(R, dev, seed=0, extents=(8, 16)):
+    """A pair for each :func:`adversarial_offsets` u and each of
+    ``extents``, both polygons centred at -u (some regular), over a bbox
+    intersection from (-0.5, -0.5) whose extent is S: the first sample of
+    the S x S grid lies at the origin, so the kernel tests u itself and the
+    grid's other samples about it (the default, 8 and 16, the cascade's two
+    grids)."""
     u = torch.from_numpy(adversarial_offsets(R))
-    n = len(u)
+    n, k = len(u), len(extents)
     g = torch.Generator().manual_seed(seed)
-    d_r = torch.rand(2 * n, R, generator=g) * 8 + 4
-    d_c = torch.rand(2 * n, R, generator=g) * 8 + 4
+    d_r = torch.rand(k * n, R, generator=g) * 8 + 4
+    d_c = torch.rand(k * n, R, generator=g) * 8 + 4
     d_c[::3] = 6.0
-    p = torch.cat([-u, -u])
-    ext = torch.cat([torch.full((n, 2), 8.0), torch.full((n, 2), 16.0)])
-    plo = torch.full((2 * n, 2), -0.5)
+    p = torch.cat([-u] * k)
+    ext = torch.cat([torch.full((n, 2), float(e)) for e in extents])
+    plo = torch.full((k * n, 2), -0.5)
     return tuple(t.to(dev) for t in (d_r, p, d_c, p.clone(), plo, ext))
 
 
@@ -1176,7 +1199,7 @@ def phase_j(dev, kernels, StarDist2D):
           f"{c['n_candidates']} candidates; {n_sync} host syncs flagged in one call "
           f"(pre-staged input, fetch=False); launches {launches}; 5 rounds of warm calls in "
           f"turn, median (min-max): {walls}", flush=True)
-    return launches
+    return n_sync
 
 
 def seam_report(model, img, lab1, lab2, det1, det2):
@@ -1834,17 +1857,21 @@ def phase_o(dev, conv, matching, StarDist3D):
         return out, f"{text}, {len(det['prob'])} objects, conv3d launches {launches}"
 
     (ref, det_ref), t_ref = call("predict_instances", lambda: model.predict_instances(img))
+    # the device path runs the reference's device lattice, S = 10
+    (ref10, det10), t_10 = call("samples=10", lambda: model.predict_instances(
+        img, nms_kwargs={"samples": 10}))
     (lab_d, det_d), t_d = call("predict_instances_device fetch=True",
                                lambda: model.predict_instances_device(img))
-    check(np.array_equal(lab_d, ref), "(o) device path labels != predict_instances")
+    check(np.array_equal(lab_d, ref10), "(o) device path labels != predict_instances at S=10")
     for k in ("points", "prob", "dist"):
-        check(np.array_equal(det_d[k], det_ref[k]), f"(o) device path {k} != predict_instances")
+        check(np.array_equal(det_d[k], det10[k]), f"(o) device path {k} != predict_instances "
+                                                  f"at S=10")
     (lab_t, det_t), t_t = call("fetch=False",
                                lambda: model.predict_instances_device(img, fetch=False))
     check(lab_t.is_cuda and lab_t.dtype == torch.int32
           and all(det_t[k].is_cuda for k in ("points", "prob", "dist")),
           "(o) fetch=False must return the labels and survivors on the card")
-    check(np.array_equal(lab_t.cpu().numpy(), ref), "(o) fetch=False labels")
+    check(np.array_equal(lab_t.cpu().numpy(), ref10), "(o) fetch=False labels")
     (lab_s, det_s), t_s = call("sparse=False", lambda: model.predict_instances(img, sparse=False))
     check(np.array_equal(lab_s, ref), "(o) sparse=False labels != sparse=True labels")
     (lab_sc, det_sc), t_sc = call("scale=(1, 0.5, 0.5)",
@@ -1871,9 +1898,11 @@ def phase_o(dev, conv, matching, StarDist3D):
     check(np.array_equal(lab_g, lab_c) and np.array_equal(det_g["points"], det_c["points"]),
           f"(o) {SURFACE3D_CMP} crop, scale and overlap_label on the CPU's candidates: card != CPU")
     print(f"(o) 3D surface, 3D_demo on {'x'.join(map(str, E2E3D_SHAPE))}: device path (fetch=True "
-          f"and fetch=False on the card) == predict_instances, sparse=False == sparse=True; "
+          f"and fetch=False on the card) == predict_instances(nms_kwargs={{'samples': 10}}), "
+          f"sparse=False == sparse=True; "
           f"scale AP@0.1 {ap['scale']:.4f}, overlap_label=-1 {n_overlap} voxels (AP@0.1 "
-          f"{ap['overlap_label']:.4f}); calls: {t_ref}; {t_d}; {t_t}; {t_s}; {t_sc}; {t_o}; "
+          f"{ap['overlap_label']:.4f}); calls: {t_ref}; {t_10}; {t_d}; {t_t}; {t_s}; {t_sc}; "
+          f"{t_o}; "
           f"{'x'.join(map(str, SURFACE3D_CMP))} crop with scale (1, 0.5, 0.5) and "
           f"overlap_label=-1 on the CPU's {len(cand[0])} candidates: card == CPU "
           f"({len(det_c['prob'])} objects)", flush=True)
@@ -3243,6 +3272,152 @@ def phase_w(dev, smi, kernels, conv, matching, StarDist2D, Config2D, StarDist3D,
     return launches
 
 
+def phase_x(dev, kernels, conv, po, matching, StarDist2D, StarDist3D, j_syncs=None):
+    """The NMS's samples option, the 3D device path's lattice and the
+    prediction generators on the card."""
+    t_phase = time.perf_counter()
+    # the pair kernel at any S: exact against its plain version
+    args = random_pairs(N_PAIRS, 32, dev, 7)
+    rows = {}
+    for S in X_S:
+        got = po.pair_frac(*args, S=S)
+        ref = po.pair_frac_plain(*args, S=S)
+        torch.cuda.synchronize()
+        n_diff = int((got != ref).sum().item())
+        check(n_diff == 0, f"(x) pair kernel differs from plain on {n_diff} pairs at S={S}")
+        b_ms, b_by = pair_bound(N_PAIRS, 32, S)
+        rows[S] = dict(ms=pair_kernel_ms(po, args, S),
+                       call_ms=cuda_ms(lambda: po.pair_frac(*args, S=S), warmup=3, iters=30),
+                       plain_ms=cuda_ms(lambda: po.pair_frac_plain(*args, S=S), iters=1),
+                       err=(got - ref).abs().max().item(), bound_ms=b_ms, bound_by=b_by)
+    n_more = 0
+    for R in X_R:
+        more = [torch.cat(ts) for ts in zip(random_pairs(20_000, R, dev, R),
+                                             adversarial_pairs(R, dev, extents=X_S))]
+        for S in X_S:
+            n_diff = int((po.pair_frac(*more, S=S) != po.pair_frac_plain(*more, S=S)).sum().item())
+            check(n_diff == 0, f"(x) pair kernel differs from plain on {n_diff} pairs at R={R}, "
+                               f"S={S}")
+        n_more += len(more[0])
+    del args, more
+    print(f"(x) pair kernel vs plain on {N_PAIRS} pairs (R = 32): exact at S = "
+          f"{', '.join(map(str, X_S))}; " + "; ".join(
+              f"S={S}: kernel {r['ms']:.4f} ms (call {r['call_ms']:.4f} ms) / plain "
+              f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), kernel at "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound" for S, r in rows.items())
+          + f"; exact too on {n_more} random and adversarial pairs at R = "
+          f"{', '.join(map(str, X_R))}, each S", flush=True)
+
+    # 2D_demo on (e)'s field with nms_kwargs={"samples": S}
+    model = StarDist2D(None, "2D_demo", "models/examples", device=dev)
+    img, lbl = synthetic_nuclei((E2E_SIZE, E2E_SIZE), seed=123)
+    base, _ = model.predict_instances(img)
+    counts = dict.fromkeys(kernels, 0)
+    parts = []
+    for S in X_SAMPLES:
+        kw = dict(nms_kwargs={"samples": S})
+        model.predict_instances(img, **kw)               # warm-up
+        torch.cuda.synchronize()
+        reset_launches(kernels)
+        lab, det = model.predict_instances(img, **kw)
+        torch.cuda.synchronize()
+        la = read_launches(kernels, model)
+        for k, v in la.items():
+            counts[k] += v
+        ap = matching(lbl, lab, thresh=0.5).accuracy
+        check(ap >= 0.95, f"(x) samples={S}: AP@0.5 {ap} < 0.95")
+        if S == 16:
+            check(np.array_equal(lab, base), "(x) samples=16 labels != the default call's")
+        same = np.array_equal(model.predict_instances(img, nms_kwargs=dict(kw["nms_kwargs"],
+                                                                           **X_SCHEDULING))[0], lab)
+        check(same, f"(x) the scheduling options changed the labels at samples={S}")
+        t, c = det["timings_s"], det["nms_counters"]
+        parts.append(f"S={S}: nms {t['nms'] * 1e3:.1f} ms, {c['n_eval_pairs']} exact pairs, "
+                     f"{c['n_fine_pairs']} of them on the fine grid, pair launches {la['pair']}, "
+                     f"{len(det['prob'])} objects, AP@0.5 {ap:.4f}, {int((lab != base).sum())} "
+                     f"pixels differ from S=16")
+    img1, _ = synthetic_nuclei((CMP_SIZE, CMP_SIZE), seed=123)
+    cpu = StarDist2D(None, "2D_demo", "models/examples", device="cpu")
+    prob, dist, points = model._predict_sparse(img1)
+    lab_g, det_g = model._instances_from_prediction(img1.shape, prob, dist, points, samples=12)
+    lab_c, det_c = cpu._instances_from_prediction(img1.shape, prob.cpu(), dist.cpu(),
+                                                  points.cpu(), samples=12)
+    check(np.array_equal(lab_g, lab_c) and np.array_equal(det_g["points"], det_c["points"]),
+          f"(x) {CMP_SIZE}^2, the card's candidates at samples=12: card != CPU")
+    print(f"(x) 2D_demo {E2E_SIZE}^2 with nms_kwargs={{'samples': S}}: " + "; ".join(parts)
+          + f"; the scheduling options {sorted(X_SCHEDULING)} change no label; {CMP_SIZE}^2, "
+          f"the card's {len(prob)} candidates through the card's and the CPU's NMS and raster "
+          f"at S=12: labels equal ({len(det_c['prob'])} objects)", flush=True)
+
+    # the 3D device path at the reference's device lattice, S = 10
+    m3 = StarDist3D(None, "3D_demo", "models/examples", device=dev)
+    img3, _ = synthetic_nuclei_3d(E2E3D_SHAPE, seed=3)
+    conv.KERNEL3D.launches = 0
+    t0 = time.perf_counter()
+    lab_d, det_d = m3.predict_instances_device(img3)
+    torch.cuda.synchronize()
+    wall_d = time.perf_counter() - t0
+    counts["conv3d"] = conv.KERNEL3D.launches
+    check(counts["conv3d"] == len(m3.net.conv_blocks()), "(x) 3D device path: conv3d launches")
+    t0 = time.perf_counter()
+    lab10, det10 = m3.predict_instances(img3, nms_kwargs={"samples": 10})
+    torch.cuda.synchronize()
+    wall_10 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lab12, det12 = m3.predict_instances(img3)
+    torch.cuda.synchronize()
+    wall_12 = time.perf_counter() - t0
+    check(np.array_equal(lab_d, lab10), "(x) 3D device path labels != samples=10's")
+    for k in ("points", "prob", "dist"):
+        check(np.array_equal(det_d[k], det10[k]), f"(x) 3D device path {k} != samples=10's")
+    lab_t, det_t = m3.predict_instances_device(img3, fetch=False)
+    check(lab_t.is_cuda and np.array_equal(lab_t.cpu().numpy(), lab10)
+          and all(np.array_equal(det_t[k].cpu().numpy(), det10[k])
+                  for k in ("points", "prob", "dist")),
+          "(x) 3D device path with fetch=False != samples=10's")
+    at10 = {tuple(p) for p in det10["points"].tolist()}
+    at12 = {tuple(p) for p in det12["points"].tolist()}
+    check(len(at10) > 0, "(x) 3D device path: no survivors")
+    print(f"(x) 3D_demo {'x'.join(map(str, E2E3D_SHAPE))}: predict_instances_device (fetch=True "
+          f"and fetch=False) == predict_instances(nms_kwargs={{'samples': 10}}), "
+          f"{len(at10)} survivors; {len(at10 ^ at12)} survivors differ from S=12 "
+          f"({len(at12)}); walls: device path {wall_d * 1e3:.1f} ms (nms "
+          f"{det_d['timings_s']['nms'] * 1e3:.1f}), samples=10 {wall_10 * 1e3:.1f} ms, "
+          f"S=12 {wall_12 * 1e3:.1f} ms (nms {det12['timings_s']['nms'] * 1e3:.1f}); conv3d "
+          f"launches {counts['conv3d']}", flush=True)
+    del m3
+
+    # the prediction generator on (k)'s field, tiled
+    imgk, _ = synthetic_nuclei((TILED_SIZE, TILED_SIZE), seed=321)
+    steps, res = [], None
+    t0 = time.perf_counter()
+    for r in model._predict_instances_generator(imgk, n_tiles=(2, 2)):
+        if isinstance(r, str):
+            steps.append(r)
+        else:
+            res = r
+    torch.cuda.synchronize()
+    wall_g = time.perf_counter() - t0
+    check(steps == ["predict"] + ["tile"] * 4 + ["nms"], f"(x) the generator yielded {steps}")
+    lab_k, det_k = model.predict_instances(imgk, n_tiles=(2, 2))
+    check(np.array_equal(res[0], lab_k)
+          and all(np.array_equal(res[1][k], det_k[k]) for k in ("points", "prob", "coord")),
+          "(x) the tiled generator's result != predict_instances'")
+    x_dev = torch.from_numpy(img).to(dev)
+    n_sync = host_syncs(lambda: model.predict_instances_device(x_dev, fetch=False))[0]
+    n_sync_gen = host_syncs(lambda: list(model._predict_instances_generator(
+        x_dev, fetch=False)))[0]
+    check(n_sync == n_sync_gen and (j_syncs is None or n_sync == j_syncs),
+          f"(x) host syncs of the device path {n_sync}, of its generator {n_sync_gen}, "
+          f"(j) {j_syncs}")
+    print(f"(x) _predict_instances_generator {TILED_SIZE}^2, n_tiles=(2, 2): yields {steps}, "
+          f"result == predict_instances' ({len(det_k['prob'])} objects), wall {wall_g * 1e3:.1f} "
+          f"ms; host syncs of one {E2E_SIZE}^2 device-path call {n_sync}, its generator run by "
+          f"hand {n_sync_gen}, (j) {j_syncs}; (x) took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return rows, counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=ALL_PHASES,
@@ -3306,8 +3481,7 @@ def main(argv=None):
         torch.cuda.empty_cache()
 
     raster = phase_i(dev, rt, rasterize_polygons_splat) if "i" in phases else None
-    if "j" in phases:
-        phase_j(dev, kernels, StarDist2D)
+    j_syncs = phase_j(dev, kernels, StarDist2D) if "j" in phases else None
     if "k" in phases:
         phase_k(dev, kernels, matching, StarDist2D, rt)
     if "l" in phases:
@@ -3345,6 +3519,11 @@ def main(argv=None):
     if "w" in phases:
         more.append(phase_w(dev, smi, kernels, conv, matching, StarDist2D, Config2D, StarDist3D,
                             Config3D))
+        torch.cuda.empty_cache()
+    if "x" in phases:
+        pair_any, counts = phase_x(dev, kernels, conv, po, matching, StarDist2D, StarDist3D,
+                                   j_syncs)
+        more.append(counts)
     if phases != set(ALL_PHASES):
         return 0
     launches["conv3d"] = launches3d
@@ -3364,9 +3543,11 @@ def main(argv=None):
         {"name": "pair_frac_f32", "route": "cuda",
          "source": "stardist_torch/csrc/pair_overlap.cu",
          "replaces": "stardist_tpu/ops/pair_overlap.py:82",
-         "launches": launches["pair"], "max_abs_err": max(r["err"] for r in pair.values()),
+         "launches": launches["pair"],
+         "max_abs_err": max(r["err"] for r in (*pair.values(), *pair_any.values())),
          **{k: pair[16][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-         "library_ms": None, "ms_s8": pair[8]["ms"], "call_ms": pair[16]["call_ms"]},
+         "library_ms": None, "ms_s8": pair[8]["ms"], "call_ms": pair[16]["call_ms"],
+         "ms_by_s": {str(S): r["ms"] for S, r in pair_any.items()}},
         conv_row("conv3x3x3_bf16_dhwc", "stardist_torch/csrc/conv3x3x3.cu",
                  "stardist_tpu/ops/conv_pallas.py:574", launches["conv3d"], conv3d),
         {"name": "raster_labels_u32", "route": "cuda",

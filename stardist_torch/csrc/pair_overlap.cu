@@ -1,7 +1,8 @@
 // Sampled overlap of star-polygon pairs: for each pair, the fraction of an
 // S x S midpoint grid over the pair's bbox intersection that lies inside
 // both polygons. The exact overlap test of the 2D NMS (S = 8 coarse, then
-// S = 16 for the pairs the coarse grid leaves undecided).
+// the fine grid, S = the NMS's ``samples``, 16 by default, for the pairs the
+// coarse grid leaves undecided); any S >= 1, as the TPU kernel.
 //
 // Replaces the Pallas TPU kernels of stardist_tpu/ops/pair_overlap.py:
 // _pair_kernel (one pair per 128-lane row) and _pair_kernel2 (two S = 8
@@ -17,9 +18,12 @@
 //   is evaluated on the window k0 - 1, k0, k0 + 1 only (below);
 // - a persistent grid: each block stages the trig table once, as float4
 //   (sin phi_k, cos phi_k, sin phi_k+1, cos phi_k+1), and its warps walk
-//   the pairs grid-stride; a pair takes 16 lanes at S = 8 (two pairs per
-//   warp) and 32 at S = 16, 4 or 8 samples a lane, and a butterfly of
-//   shuffles sums the lanes' counts;
+//   the pairs grid-stride; a pair takes lanes_per_pair(S) lanes (16 at
+//   S = 8, two pairs per warp; 32 at S >= 12), about four samples a lane
+//   up to S = 11 and ceil(S^2 / 32) above, and a butterfly of shuffles
+//   sums the lanes' counts; S = 8 and S = 16, which the cascade launches on
+//   every 2D call, are compiled with S fixed, any other S runs one
+//   instantiation with S given at run time;
 // - the dist rows are read straight through L1 (two entries per sample);
 // - a sample outside the first polygon skips the second test.
 //
@@ -43,8 +47,12 @@
 // Bitwise agreement with the plain PyTorch version (ops/pair_overlap.py):
 // - the trig table is numpy's f64 sin/cos cast to f32, passed in; no
 //   sinf/cosf here (the arctangent only picks the window);
-// - sample coordinates are plo + (((i / S) + 0.5) / S) * ext, in that order
-//   (the division by S, a power of two, as the exact product with 1 / S);
+// - sample coordinates are plo + (((i / S) + 0.5) * f32(1 / S)) * ext, in
+//   that order, with 1 / S rounded to f32 once: what the TPU kernel's
+//   (i // S + 0.5) / S computes where XLA compiles it (the division by a
+//   constant becomes a product with its rounded reciprocal; the same bits
+//   as a division at S = 8 and 16, powers of two); the plain version makes
+//   its grid so in numpy on the host;
 // - every product and sum is rounded on its own (__fmul_rn / __fadd_rn /
 //   __fsub_rn, and the file is built with -fmad=false): a fused
 //   multiply-add in er*(uc-v0c) - ec*(ur-v0r) would flip samples lying
@@ -52,8 +60,9 @@
 //   changes a decision;
 // - the vertex sums are 0.0f plus the one matching wedge's terms, as the
 //   walk forms them;
-// - the result is a count of 0/1 samples divided by S*S (a power of two),
-//   exact in f32 whatever the summation order.
+// - the result is an integer count of 0/1 samples times f32(1 / S^2), as
+//   XLA computes the TPU kernel's sum / (S * S), the same whatever the
+//   summation order.
 #include <cuda_runtime.h>
 
 #include "wedge.cuh"
@@ -133,16 +142,32 @@ __device__ __forceinline__ bool inside(const float* __restrict__ d, float pr, fl
   return side(ur, uc, v);
 }
 
-template <int S>
+// Lanes per pair: the power of two nearest above a quarter of the grid's
+// samples, at most 32 (16 at S = 8, two pairs a warp; 32 at S = 16; 4 at
+// S = 3, eight pairs a warp).
+__host__ __device__ constexpr int lanes_per_pair(int S) {
+  int L = 1;
+  while (L < 32 && 4 * L < S * S) L <<= 1;
+  return L;
+}
+
+// SC = 8 or 16: the grid fixed at compile time (the cascade's two grids,
+// launched on every 2D NMS call); SC = 0: any S >= 1, given at run time.
+template <int SC>
 __global__ void __launch_bounds__(THREADS)
 pair_kernel(const float* __restrict__ d_r, const float* __restrict__ p_r,
             const float* __restrict__ d_c, const float* __restrict__ p_c,
             const float* __restrict__ plo, const float* __restrict__ ext,
             const float* __restrict__ trig, float* __restrict__ out, int P, int R,
-            float rscale) {
-  constexpr int L = S == 8 ? 16 : 32;  // lanes per pair
-  constexpr int G = 32 / L;            // pairs per warp step
-  constexpr int NS = S * S / L;        // samples per lane
+            float rscale, int S_run) {
+  const int S = SC ? SC : S_run;
+  const int n = S * S;                   // samples per pair
+  const int L = lanes_per_pair(S);       // lanes per pair
+  const int G = 32 / L;                  // pairs per warp step
+  const int NS = (n + L - 1) / L;        // samples per lane
+  // f32 1 / S and 1 / S^2, rounded once (exact at S = 8 and 16)
+  const float inv_s = SC ? 1.0f / SC : __frcp_rn((float)S);
+  const float inv_n = SC ? 1.0f / (SC * SC) : __frcp_rn((float)n);
   __shared__ float4 tab[RMAX];
   for (int k = threadIdx.x; k < R; k += THREADS)
     tab[k] = make_float4(trig[k], trig[R + k], trig[2 * R + k], trig[3 * R + k]);
@@ -166,8 +191,11 @@ pair_kernel(const float* __restrict__ d_r, const float* __restrict__ p_r,
 #pragma unroll 1
       for (int j = 0; j < NS; ++j) {
         const int i = gl + j * L;
-        const float gr = __fmul_rn(__fadd_rn((float)(i / S), 0.5f), 1.0f / S);
-        const float gc = __fmul_rn(__fadd_rn((float)(i % S), 0.5f), 1.0f / S);
+        if (n % L != 0 && i >= n) break;   // only where L does not divide S * S
+        const int row = i / S;
+        const int col = i - row * S;
+        const float gr = __fmul_rn(__fadd_rn((float)row, 0.5f), inv_s);
+        const float gc = __fmul_rn(__fadd_rn((float)col, 0.5f), inv_s);
         const float qr = __fadd_rn(lor, __fmul_rn(gr, exr));
         const float qc = __fadd_rn(loc, __fmul_rn(gc, exc));
         if (inside(dr, prr, prc, qr, qc, tab, R, rscale) &&
@@ -175,15 +203,14 @@ pair_kernel(const float* __restrict__ d_r, const float* __restrict__ p_r,
           ++count;
       }
     }
-#pragma unroll
     for (int off = L / 2; off > 0; off >>= 1)
       count += __shfl_xor_sync(0xffffffffu, count, off);
-    if (gl == 0 && p < P) out[p] = __fdiv_rn((float)count, (float)(S * S));
+    if (gl == 0 && p < P) out[p] = __fmul_rn((float)count, inv_n);
   }
 }
 
 // Blocks of the persistent grid: as many as fit on the card at once.
-template <int S>
+template <int SC>
 cudaError_t resident_blocks(int* blocks) {
   static int cached[MAX_DEVICES] = {0};
   int dev = 0;
@@ -196,42 +223,43 @@ cudaError_t resident_blocks(int* blocks) {
   int sms = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pair_kernel<S>, THREADS, 0);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pair_kernel<SC>, THREADS, 0);
   if (err != cudaSuccess) return err;
   *blocks = sms * (per_sm > 0 ? per_sm : 1);
   if (dev < MAX_DEVICES) cached[dev] = *blocks;
   return cudaSuccess;
 }
 
-template <int S>
-int launch(const float* const* a, float* o, int P, int R, cudaStream_t s) {
+template <int SC>
+int launch(const float* const* a, float* o, int P, int R, int S, cudaStream_t s) {
   int blocks = 0;
-  cudaError_t err = resident_blocks<S>(&blocks);
+  cudaError_t err = resident_blocks<SC>(&blocks);
   if (err != cudaSuccess) return (int)err;
-  constexpr int per_block = WARPS * (S == 8 ? 2 : 1);
+  const int per_block = WARPS * (32 / lanes_per_pair(S));
   const int needed = (P + per_block - 1) / per_block;
   const float rscale = (float)(R / 6.283185307179586);
-  pair_kernel<S><<<needed < blocks ? needed : blocks, THREADS, 0, s>>>(
-      a[0], a[1], a[2], a[3], a[4], a[5], a[6], o, P, R, rscale);
+  pair_kernel<SC><<<needed < blocks ? needed : blocks, THREADS, 0, s>>>(
+      a[0], a[1], a[2], a[3], a[4], a[5], a[6], o, P, R, rscale, S);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // d_r, d_c (P, R); p_r, p_c, plo, ext (P, 2); trig (4, R); out (P,), all f32.
-// S in {8, 16}, 3 <= R <= 128. Returns cudaGetLastError() after the launch.
+// 1 <= S <= 46340 (S * S fits an int), 3 <= R <= 128. Returns
+// cudaGetLastError() after the launch.
 extern "C" int pair_frac_f32(const void* d_r, const void* p_r, const void* d_c,
                              const void* p_c, const void* plo, const void* ext,
                              const void* trig, void* out, int P, int R, int S,
                              void* stream) {
-  if (P <= 0 || R < 3 || R > RMAX) return (int)cudaErrorInvalidValue;
+  if (P <= 0 || R < 3 || R > RMAX || S < 1 || S > 46340) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* a[7] = {static_cast<const float*>(d_r), static_cast<const float*>(p_r),
                        static_cast<const float*>(d_c), static_cast<const float*>(p_c),
                        static_cast<const float*>(plo), static_cast<const float*>(ext),
                        static_cast<const float*>(trig)};
   float* o = static_cast<float*>(out);
-  if (S == 8) return launch<8>(a, o, P, R, s);
-  if (S == 16) return launch<16>(a, o, P, R, s);
-  return (int)cudaErrorInvalidValue;
+  if (S == 8) return launch<8>(a, o, P, R, S, s);
+  if (S == 16) return launch<16>(a, o, P, R, S, s);
+  return launch<0>(a, o, P, R, S, s);
 }

@@ -34,6 +34,7 @@ thresholds those maps on ``self.device`` instead of extracting candidates.
 from __future__ import annotations
 
 import datetime
+import functools
 import json
 import math
 import numbers
@@ -302,6 +303,20 @@ def _class_details(prob_class, fetch=True):
         return dict(class_prob=prob_class, class_id=torch.argmax(prob_class, dim=-1))
     prob_class = prob_class.cpu().numpy()
     return dict(class_prob=prob_class, class_id=np.argmax(prob_class, axis=-1))
+
+
+def _drain(generator):
+    """A method that runs the generator method ``generator`` to its end and
+    returns its last yield (the reference's ``predict``, ``predict_sparse``
+    and ``predict_instances``, base.py:1368-1571); it takes the
+    generator's signature and docstring."""
+    @functools.wraps(generator)
+    def drain(self, *args, **kwargs):
+        r = None
+        for r in generator(self, *args, **kwargs):
+            pass
+        return r
+    return drain
 
 
 def _sync(device):
@@ -1116,46 +1131,40 @@ class StarDistBase:
             return vals, d, points
         return vals, d, points, prob_class.reshape(prob_class.shape[0], -1)[:, idx].t()
 
-    def predict_sparse(self, img, prob_thresh=None, axes=None, normalizer=None,
-                       n_tiles=None, show_tile_progress=True, b=2, max_candidates=None,
-                       device_dist=False):
-        """Sparse prediction (reference base.py:1375-1477): numpy (prob (K,)
-        float32, dist (K, R) float32, points (K, n_dim) int64), points in
-        full-resolution pixels, and for a multiclass model (prob, dist,
-        prob_class (K, n_classes + 1) float32, points); see
-        :meth:`_predict_sparse`.
-        ``show_tile_progress`` shows nothing, as in the reference;
-        ``max_candidates`` keeps the top-K of each tile (of the padded
-        image when it is one tile), with a warning when there were more, as
-        the reference's default route does. ``device_dist=True`` is the
-        reference's device route: in one tile the padding leaves the mask
-        before the top-K (``fold_padding``) and ``dist`` stays a tensor on
-        ``self.device`` (a CUDA tensor on the card), the rest numpy; tiled,
-        everything is numpy, as in the reference (base.py:1444-1460)."""
-        out = self._predict_sparse(img, prob_thresh, axes, normalizer, n_tiles, b,
-                                   max_candidates=max_candidates, fold_padding=device_dist)
-        one_tile = n_tiles is None or np.prod(n_tiles) == 1
-        return tuple(t if device_dist and one_tile and i == 1 else t.cpu().numpy()
-                     for i, t in enumerate(out))
+    def _predict_sparse_generator(self, img, prob_thresh=None, axes=None, normalizer=None,
+                                  n_tiles=None, show_tile_progress=True, b=2,
+                                  max_candidates=None, device_dist=False, *, timings=None,
+                                  fetch=True, **predict_kwargs):
+        """Sparse prediction (reference base.py:1375-1477), as a generator:
+        it yields None after each tile's candidates (tiled calls only), then
+        the result. :meth:`predict_sparse` runs it to its end.
 
-    def _predict_sparse(self, img, prob_thresh=None, axes=None, normalizer=None,
-                        n_tiles=None, b=2, timings=None, max_candidates=None,
-                        fold_padding=True):
-        """Sparse prediction: (prob (K,), dist (K, R), points (K, n_dim))
-        tensors on ``self.device``; points in full-resolution pixels. A
-        multiclass model returns (prob, dist, prob_class (K, n_classes + 1),
-        points), the reference's order.
+        The result: numpy (prob (K,) float32, dist (K, R) float32, points
+        (K, n_dim) int64), points in full-resolution pixels, and for a
+        multiclass model (prob, dist, prob_class (K, n_classes + 1)
+        float32, points), the reference's order; ``fetch=False`` leaves all
+        of them tensors on ``self.device``.
 
         ``img`` is a numpy image, or a pre-staged tensor on ``self.device``
         (see :meth:`_prestaged`). With ``n_tiles`` (one count per axis of
         ``img``) each tile's candidates are those of its core, minus the
         border ``b`` at the image's edges; the lists are joined in tile
         order, each in its tile's ``top_k`` order (reference
-        base.py:1395-1432), and candidates in the padding are dropped. In
-        one tile, ``fold_padding`` leaves the padding out of the mask (the
-        reference's ``device_dist`` route, that of its ``predict_instances``)
-        instead of dropping its candidates after the extraction: the two
-        differ only in what ``max_candidates`` keeps."""
+        base.py:1395-1432), and candidates in the padding are dropped.
+        ``max_candidates`` keeps the top-K of each tile (of the padded image
+        when it is one tile), with a warning when there were more, as the
+        reference's default route does. ``device_dist=True`` is the
+        reference's device route: in one tile the padding leaves the mask
+        before the top-K instead of its candidates being dropped after the
+        extraction (the two differ only in what ``max_candidates`` keeps),
+        and with ``fetch`` ``dist`` stays a tensor on ``self.device`` (a
+        CUDA tensor on the card), the rest numpy; tiled, everything is
+        numpy, as in the reference (base.py:1444-1460).
+        ``show_tile_progress`` shows nothing and ``predict_kwargs`` are
+        taken and change nothing, as in the reference. ``timings``, if a
+        dict, receives the seconds of the forwards (``forward``) and of the
+        extraction (``extract``), neither counting the time the caller
+        holds a yield."""
         if prob_thresh is None:
             prob_thresh = self.thresholds.prob
         if isinstance(img, torch.Tensor):
@@ -1165,7 +1174,8 @@ class StarDistBase:
             x, axes_net, resizer, n_tiles = self._predict_setup(img, axes, normalizer, n_tiles)
         grid = torch.tensor(self.config.grid, device=self.device)
         t_fwd = t_ext = 0.0
-        if np.prod(n_tiles) > 1:
+        one_tile = np.prod(n_tiles) == 1
+        if not one_tile:
             sp = [i for i, a in enumerate(axes_net) if a != "C"]
             out_sh = [x.shape[i] // g for i, g in zip(sp, self.config.grid)]
             bb = 0 if b is None else b
@@ -1189,6 +1199,8 @@ class StarDistBase:
                 _sync(self.device)
                 t_fwd += t1 - t0
                 t_ext += time.perf_counter() - t1
+                del outs
+                yield
             t1 = time.perf_counter()
             vals, d, points, *pc = (torch.cat(t) for t in zip(*parts))
             inside = torch.all(points < self._inside_bounds(axes_net, resizer), dim=1)
@@ -1196,7 +1208,7 @@ class StarDistBase:
             _sync(self.device)
             t_ext += time.perf_counter() - t1
         else:
-            if fold_padding or resizer is None:
+            if device_dist or resizer is None:
                 b_key = self._border_key(b, x, axes_net, resizer)
             else:
                 b_key = (b if b is not None and not np.isscalar(b)
@@ -1208,7 +1220,7 @@ class StarDistBase:
             vals, d, points, *pc = self._extract(outs[0], outs[1], float(prob_thresh), b_key,
                                                  max_candidates, *outs[2:])
             points = points * grid[None]
-            if not fold_padding and resizer is not None:
+            if not device_dist and resizer is not None:
                 inside = torch.all(points < self._inside_bounds(axes_net, resizer), dim=1)
                 vals, d, points = vals[inside], d[inside], points[inside]
                 pc = [c[inside] for c in pc]
@@ -1216,7 +1228,23 @@ class StarDistBase:
             t_fwd, t_ext = t1 - t0, time.perf_counter() - t1
         if timings is not None:
             timings.update(forward=t_fwd, extract=t_ext)
-        return (vals, d, *pc, points)
+        out = (vals, d, *pc, points)
+        if fetch:
+            out = tuple(t if device_dist and one_tile and i == 1 else t.cpu().numpy()
+                        for i, t in enumerate(out))
+        yield out
+
+    predict_sparse = _drain(_predict_sparse_generator)
+
+    def _predict_sparse(self, img, prob_thresh=None, axes=None, normalizer=None,
+                        n_tiles=None, b=2, timings=None, max_candidates=None,
+                        fold_padding=True):
+        """:meth:`predict_sparse` as tensors on ``self.device``, with
+        ``fold_padding`` for its ``device_dist`` (default True, the route
+        of :meth:`predict_instances`)."""
+        return self.predict_sparse(img, prob_thresh, axes, normalizer, n_tiles, b=b,
+                                   max_candidates=max_candidates, device_dist=fold_padding,
+                                   timings=timings, fetch=False)
 
     def _inside_bounds(self, axes_net, resizer):
         """Per spatial axis, the end of the image within the padded input
@@ -1224,17 +1252,19 @@ class StarDistBase:
         return torch.tensor([resizer.padded_shape[a] - resizer.pad[a][1]
                              for a in axes_net if a != "C"], device=self.device)
 
-    def predict(self, img, axes=None, normalizer=None, n_tiles=None, show_tile_progress=True):
-        """Dense prediction (reference base.py:1325-1373): prob (sp/g...) and
-        dist (sp/g..., R), numpy float32, on the grid of the network output
-        and cropped to the image; dist clamped at 1e-3; a multiclass model
-        adds prob_class (sp/g..., n_classes + 1). ``show_tile_progress`` is
-        taken so that calls written for the reference run; it shows
-        nothing, as in the reference."""
-        return tuple(t.cpu().numpy() for t in self._predict(img, axes, normalizer, n_tiles))
+    def _predict_generator(self, img, axes=None, normalizer=None, n_tiles=None,
+                           show_tile_progress=True, *, fetch=True, **predict_kwargs):
+        """Dense prediction (reference base.py:1325-1373), as a generator:
+        it yields None after each tile (tiled calls only), then the result.
+        :meth:`predict` runs it to its end.
 
-    def _predict(self, img, axes=None, normalizer=None, n_tiles=None, show_tile_progress=True):
-        """:meth:`predict` as float32 tensors on ``self.device``."""
+        The result: prob (sp/g...) and dist (sp/g..., R), numpy float32, on
+        the grid of the network output and cropped to the image; dist
+        clamped at 1e-3; a multiclass model adds prob_class (sp/g...,
+        n_classes + 1). ``fetch=False`` leaves them float32 tensors on
+        ``self.device``. ``show_tile_progress`` shows nothing and
+        ``predict_kwargs`` are taken and change nothing, as in the
+        reference."""
         x, axes_net, resizer, n_tiles = self._predict_setup(img, axes, normalizer, n_tiles)
         channel = axes_dict(axes_net)["C"]
         if np.prod(n_tiles) > 1:
@@ -1249,12 +1279,20 @@ class StarDistBase:
             for tile, s_src, s_dst in self._tiles(x, axes_net, n_tiles):
                 for part, part_tile in zip(result, self._forward(tile)):
                     part[tuple(s_dst)] = part_tile[tuple(s_src)]
+                yield
         else:
             result = self._forward(x)
         prob, dist, *pc = (resizer.after(part, axes_net) for part in result)
         prob = prob.select(channel, 0)
         dist = torch.movedim(dist.clamp_min(1e-3), channel, -1)
-        return (prob, dist, *(torch.movedim(c, channel, -1) for c in pc))
+        out = (prob, dist, *(torch.movedim(c, channel, -1) for c in pc))
+        yield tuple(t.cpu().numpy() for t in out) if fetch else out
+
+    predict = _drain(_predict_generator)
+
+    def _predict(self, img, axes=None, normalizer=None, n_tiles=None, show_tile_progress=True):
+        """:meth:`predict` as float32 tensors on ``self.device``."""
+        return self.predict(img, axes, normalizer, n_tiles, fetch=False)
 
     def _forward(self, x):
         """Forward of one (sp..., C) numpy input -> channels-last tensors on
@@ -1263,19 +1301,27 @@ class StarDistBase:
         prob, *rest = self.net(self._upload(x))
         return (prob[..., None], *(torch.movedim(t, 0, -1) for t in rest))
 
-    def predict_instances(self, img, axes=None, normalizer=None, sparse=True, prob_thresh=None,
-                          nms_thresh=None, scale=None, n_tiles=None, show_tile_progress=True,
-                          verbose=False, return_labels=True, predict_kwargs=None,
-                          nms_kwargs=None, overlap_label=None, return_predict=False, *, b=2,
-                          fetch=True):
+    def _predict_instances_generator(self, img, axes=None, normalizer=None, sparse=True,
+                                     prob_thresh=None, nms_thresh=None, scale=None,
+                                     n_tiles=None, show_tile_progress=True, verbose=False,
+                                     return_labels=True, predict_kwargs=None, nms_kwargs=None,
+                                     overlap_label=None, return_predict=False, *, b=2,
+                                     fetch=True):
         """Predict -> NMS -> rasterize, with the reference's parameters
-        (base.py:1479-1571). Returns (labels (*sp) int32 numpy, details
-        dict: the survivors (see the model's ``_render_survivors``),
-        ``nms_counters`` and the stage times ``timings_s``); with
-        ``return_predict``, ``((labels, details), (prob, dist))``, the dense
-        maps of :meth:`predict` (it sets ``sparse=False``, with a warning).
+        (base.py:1479-1571), as a generator: it yields ``"predict"``, then
+        ``"tile"`` after each tile (tiled calls only, sparse and dense),
+        then ``"nms"``, then the result; :meth:`predict_instances` runs it
+        to its end (upstream's napari plugin drives the reference's for its
+        tile progress bar). A generator made and never run does nothing.
 
-        ``img`` and ``n_tiles`` as in :meth:`_predict_sparse`;
+        The result: (labels (*sp) int32 numpy, details dict: the survivors
+        (see the model's ``_render_survivors``), ``nms_counters`` and the
+        stage times ``timings_s``, none of which counts the time the caller
+        holds a yield); with ``return_predict``, ``((labels, details),
+        (prob, dist))``, the dense maps of :meth:`predict` (it sets
+        ``sparse=False``, with a warning).
+
+        ``img`` and ``n_tiles`` as in :meth:`predict_sparse`;
         ``show_tile_progress`` as in :meth:`predict`; ``b`` is the
         candidates' border. ``sparse=False`` thresholds the dense maps of
         :meth:`predict`, kept on ``self.device`` (the model's
@@ -1286,13 +1332,16 @@ class StarDistBase:
         ``predict_kwargs`` go to the candidate extraction (``b``,
         ``max_candidates``, ``device_dist``: in one tile, whether the
         padding leaves the mask before the top-K, the default, or its
-        candidates are dropped after it; see :meth:`_predict_sparse`) or to
+        candidates are dropped after it; see :meth:`predict_sparse`) or to
         :meth:`predict`; ``nms_kwargs`` to the NMS (``b``, ``use_bbox``,
-        ``use_kdtree``, ``verbose``). ``fetch=False`` leaves the labels
-        and the survivors as tensors on ``self.device``. ``overlap_label``
-        (3D) marks the voxels that more than one survivor covers; the 2D
-        model raises ``NotImplementedError`` for it, as the reference's 2D
-        model does."""
+        ``use_kdtree``, ``verbose``, and the reference's NMS options:
+        ``samples``, the exact overlap test's resolution, and the
+        scheduling options, which change nothing; see
+        :mod:`stardist_torch.nms`). ``fetch=False`` leaves the labels and
+        the survivors as tensors on ``self.device``. ``overlap_label`` (3D)
+        marks the voxels that more than one survivor covers; the 2D model
+        raises ``NotImplementedError`` for it, as the reference's 2D model
+        does."""
         render_kw = dict(fetch=fetch)
         if overlap_label is not None:
             if self.config.n_dim == 2:
@@ -1308,20 +1357,31 @@ class StarDistBase:
         if scale is not None:
             img, scale = self._zoom(img, axes, scale, verbose)
         timings = {}
+        yield "predict"
         if sparse:
             predict_kwargs.setdefault("b", b)
-            fold_padding = bool(predict_kwargs.pop("device_dist", True))
-            *pred, points = self._predict_sparse(img, prob_thresh, axes, normalizer, n_tiles,
-                                                 timings=timings, fold_padding=fold_padding,
-                                                 **predict_kwargs)
+            device_dist = bool(predict_kwargs.pop("device_dist", True))
+            for res in self._predict_sparse_generator(
+                    img, prob_thresh, axes, normalizer, n_tiles, show_tile_progress,
+                    device_dist=device_dist, timings=timings, fetch=False, **predict_kwargs):
+                if res is None:
+                    yield "tile"
+            *pred, points = res
         else:
             nms_kwargs.setdefault("b", b)
             t0 = time.perf_counter()
-            pred = self._predict(img, axes, normalizer, n_tiles, show_tile_progress,
-                                 **predict_kwargs)
+            for res in self._predict_generator(img, axes, normalizer, n_tiles,
+                                               show_tile_progress, fetch=False,
+                                               **predict_kwargs):
+                if res is None:
+                    t1 = time.perf_counter()
+                    yield "tile"
+                    t0 += time.perf_counter() - t1       # the caller's time is not the forward's
+            pred = res
             _sync(self.device)
             timings.update(forward=time.perf_counter() - t0)
             points = None
+        yield "nms"
         prob, dist, *pc = pred
         res = self._instances_from_prediction(
             shape_inst, prob, dist, points, *pc, prob_thresh=prob_thresh, nms_thresh=nms_thresh,
@@ -1329,8 +1389,11 @@ class StarDistBase:
             render_kw=render_kw, **nms_kwargs)
         res[1]["timings_s"] = timings
         if return_predict:
-            return res, tuple(t.cpu().numpy() for t in pred)
-        return res
+            yield res, tuple(t.cpu().numpy() for t in pred)
+        else:
+            yield res
+
+    predict_instances = _drain(_predict_instances_generator)
 
     def predict_instances_big(self, img, axes, block_size, min_overlap, context=None,
                               labels_out=None, labels_out_dtype=np.int32, show_progress=True,

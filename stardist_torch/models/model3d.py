@@ -21,6 +21,9 @@ from .base import StarDistBase, StarDistDataBase, _class_details
 from .model2d import _as_batch_dict, _BatchDictAdapter, class_targets
 
 
+DEVICE_LATTICE_S = 10  # the 3D device path's lattice (reference model3d.py:554)
+
+
 class StarDistData3D(StarDistDataBase):
     """Training batches (reference model3d.py:27-103): random
     foreground-biased patches -> augmenter -> targets. ``__getitem__``
@@ -375,13 +378,20 @@ class StarDist3D(StarDistBase):
         ``self.device``: already normalized, ``(Z, Y, X)`` or ``(Z, Y, X,
         C)``, each spatial size divisible by the network stride.
 
+        Its NMS runs the exact overlap test on a lattice of
+        ``DEVICE_LATTICE_S`` = 10 points per axis, as the reference's
+        device path does (model3d.py:554, ``S = 10``), where
+        :meth:`predict_instances` runs the reference's host NMS's 12: it is
+        ``predict_instances(..., nms_kwargs={"samples": 10})``.
+
         Returns ``(labels, details)`` as :meth:`predict_instances` does (a
         multiclass model's with ``class_prob`` and ``class_id``); with
         ``fetch=False`` the label volume (int32) and
         ``dist``/``points``/``prob`` (and ``class_prob``/``class_id``) stay
         tensors on ``self.device``."""
         return self.predict_instances(img, axes, normalizer, prob_thresh=prob_thresh,
-                                      nms_thresh=nms_thresh, verbose=verbose, b=b, fetch=fetch)
+                                      nms_thresh=nms_thresh, verbose=verbose,
+                                      nms_kwargs={"samples": DEVICE_LATTICE_S}, b=b, fetch=fetch)
 
     def _axes_div_by(self, query_axes):
         """The network's stride per axis of ``query_axes``: pool ** depth *

@@ -5,15 +5,39 @@ suppression run in :mod:`stardist_torch.ops.nms` on the device the
 candidates live on. Inputs may be numpy arrays or torch tensors; the outputs
 are of the kind ``dist`` was given as. Tensors stay on their device; numpy
 inputs go to ``device`` (the card unless the caller passes ``device="cpu"``).
+
+Every entry takes the reference's ``**nms_opts`` (``stardist_tpu/ops/nms.py``
+``nms_polygons`` and ``nms_polyhedra``): ``samples`` is the exact overlap
+test's resolution (2D: the fine grid's side, 16 by default; 3D: the
+lattice's points per axis, 12 by default) and changes the result as it does
+there. ``dense_max``, ``row_block``, ``col_block``, ``device_nms`` and
+``dist_max`` choose how the reference schedules its work, whose paths share
+one criterion: they are taken and change nothing. Any other name raises
+``TypeError``, as in the reference.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .ops.nms import nms_polygons, nms_polyhedra
+from .ops.nms import LATTICE_S, nms_polygons, nms_polyhedra
 from .ops.polyhedron import ray_tensors
 from .utils import _normalize_grid, as_tensor_on
+
+
+SCHEDULING_OPTIONS = ("dense_max", "row_block", "col_block", "device_nms", "dist_max")
+
+
+def _samples(nms_opts, default):
+    """The ``samples`` of the reference's NMS options ``nms_opts`` (default
+    ``default``), checked; the scheduling options are dropped."""
+    unknown = sorted(set(nms_opts) - {"samples", *SCHEDULING_OPTIONS})
+    if unknown:
+        raise TypeError(f"unexpected NMS option(s): {', '.join(unknown)}")
+    samples = nms_opts.get("samples", default)
+    if isinstance(samples, bool) or int(samples) != samples or samples < 1:
+        raise ValueError(f"samples must be an integer >= 1, got {samples!r}")
+    return int(samples)
 
 
 def descending_order(prob):
@@ -53,12 +77,13 @@ def _dense_candidates(dist, prob, grid, prob_thresh, b):
 
 def non_maximum_suppression(dist, prob, grid=(1, 1), b=2, nms_thresh=0.5, prob_thresh=0.5,
                             use_bbox=True, use_kdtree=True, verbose=False, *, stats=None,
-                            device="cuda"):
+                            device="cuda", **nms_opts):
     """NMS of dense 2D predictions, dist (Ny, Nx, R) and prob (Ny, Nx): the
     candidates of :func:`_ind_prob_thresh`, in :func:`descending_order`,
     through the greedy NMS (the pair kernel on the card), all on the
     device of ``dist`` (numpy inputs go to ``device``). ``use_bbox`` and
-    ``use_kdtree`` change nothing, as in the reference.
+    ``use_kdtree`` change nothing, as in the reference; ``nms_opts`` as in
+    the module docstring.
 
     Returns (points, prob, dist) of the survivors, in descending-prob order;
     points (int64) in full-resolution pixels (times ``grid``)."""
@@ -69,7 +94,7 @@ def non_maximum_suppression(dist, prob, grid=(1, 1), b=2, nms_thresh=0.5, prob_t
     probi, disti, points = _dense_candidates(dist, prob, _normalize_grid(grid, 2),
                                              prob_thresh, b)
     keep = non_maximum_suppression_inds(disti, points, scores=probi, thresh=nms_thresh,
-                                        stats=stats)
+                                        stats=stats, **nms_opts)
     if verbose:
         print("keeping %s/%s polygons" % (int(keep.sum()), len(keep)))
     out = points[keep], probi[keep], disti[keep]
@@ -104,10 +129,10 @@ def _non_maximum_suppression_old(coord, prob, grid=(1, 1), b=2, nms_thresh=0.5,
 
 def non_maximum_suppression_sparse(dist, prob, points, b=2, nms_thresh=0.5, use_bbox=True,
                                    use_kdtree=True, verbose=False, *, stats=None,
-                                   device="cuda"):
+                                   device="cuda", **nms_opts):
     """NMS from sparse candidate lists (``b``, ``use_bbox`` and
     ``use_kdtree`` are taken for calls written for the reference and change
-    nothing, as there).
+    nothing, as there; ``nms_opts`` as in the module docstring).
 
     Returns (points, prob, dist, inds_original) of the survivors, in
     descending-prob order."""
@@ -121,7 +146,7 @@ def non_maximum_suppression_sparse(dist, prob, points, b=2, nms_thresh=0.5, use_
     order = descending_order(prob)
     probi, disti, pointsi = prob[order], dist[order], points[order]
     keep = non_maximum_suppression_inds(disti, pointsi, scores=probi,
-                                        thresh=nms_thresh, stats=stats)
+                                        thresh=nms_thresh, stats=stats, **nms_opts)
     if verbose:
         print("keeping %s/%s polygons" % (int(keep.sum()), len(keep)))
     out = pointsi[keep], probi[keep], disti[keep], order[keep]
@@ -131,29 +156,33 @@ def non_maximum_suppression_sparse(dist, prob, points, b=2, nms_thresh=0.5, use_
 
 
 def non_maximum_suppression_inds(dist, points, scores, thresh=0.5, use_bbox=True,
-                                 use_kdtree=True, verbose=1, *, stats=None, device="cuda"):
+                                 use_kdtree=True, verbose=1, *, stats=None, device="cuda",
+                                 **nms_opts):
     """Greedy NMS over score-sorted polygons: P1 suppresses P2 if
     overlap(P1, P2) = A_inter / min(A1, A2) > thresh. Returns bool survivors
     (a tensor for tensor input, else a numpy array). ``use_bbox``,
     ``use_kdtree`` and ``verbose`` are taken for calls written for the
-    reference and change nothing."""
+    reference and change nothing; ``nms_opts`` as in the module docstring
+    (``samples``: the fine grid's side, 16 by default)."""
+    samples = _samples(nms_opts, 16)
     as_numpy = not isinstance(dist, torch.Tensor)
     dist = as_tensor_on(dist, device)
     points = as_tensor_on(points, dist.device)
     assert dist.dim() == 2 and points.dim() == 2 and points.shape[0] == dist.shape[0]
     keep = nms_polygons(dist.to(torch.float32), points.to(torch.float32),
-                        thresh=float(thresh), stats=stats)
+                        thresh=float(thresh), stats=stats, samples=samples)
     return keep.cpu().numpy() if as_numpy else keep
 
 
 def non_maximum_suppression_3d(dist, prob, rays, grid=(1, 1, 1), b=2, nms_thresh=0.5,
                                prob_thresh=0.5, use_bbox=True, use_kdtree=True, verbose=False,
-                               *, stats=None, device="cuda"):
+                               *, stats=None, device="cuda", **nms_opts):
     """NMS of dense 3D predictions, dist (Nz, Ny, Nx, R) and prob (Nz, Ny,
     Nx): the candidates of :func:`_ind_prob_thresh`, in
     :func:`descending_order`, through the greedy polyhedron NMS, all on the
     device of ``dist`` (numpy inputs go to ``device``). ``use_bbox`` and
-    ``use_kdtree`` change nothing, as in the reference.
+    ``use_kdtree`` change nothing, as in the reference; ``nms_opts`` as in
+    the module docstring.
 
     Returns (points, prob, dist) of the survivors, in descending-prob order;
     points (int64) in full-resolution voxels (times ``grid``)."""
@@ -165,7 +194,7 @@ def non_maximum_suppression_3d(dist, prob, rays, grid=(1, 1, 1), b=2, nms_thresh
     probi, disti, points = _dense_candidates(dist, prob, _normalize_grid(grid, 3),
                                              prob_thresh, b)
     keep = non_maximum_suppression_3d_inds(disti, points, rays, scores=probi,
-                                           thresh=nms_thresh, stats=stats)
+                                           thresh=nms_thresh, stats=stats, **nms_opts)
     if verbose:
         print("keeping %s/%s polyhedra" % (int(keep.sum()), len(keep)))
     out = points[keep], probi[keep], disti[keep]
@@ -174,9 +203,10 @@ def non_maximum_suppression_3d(dist, prob, rays, grid=(1, 1, 1), b=2, nms_thresh
 
 def non_maximum_suppression_3d_sparse(dist, prob, points, rays, b=2, nms_thresh=0.5,
                                       use_kdtree=True, verbose=False, *, stats=None,
-                                      device="cuda"):
+                                      device="cuda", **nms_opts):
     """NMS from sparse 3D candidate lists (``rays``: the model's ``Rays``;
-    ``b`` and ``use_kdtree`` change nothing, as in the reference).
+    ``b`` and ``use_kdtree`` change nothing, as in the reference;
+    ``nms_opts`` as in the module docstring).
 
     Returns (points, prob, dist, inds_original) of the survivors, in
     descending-prob order."""
@@ -191,7 +221,7 @@ def non_maximum_suppression_3d_sparse(dist, prob, points, rays, b=2, nms_thresh=
     order = descending_order(prob)
     probi, disti, pointsi = prob[order], dist[order], points[order]
     keep = non_maximum_suppression_3d_inds(disti, pointsi, rays, scores=probi,
-                                           thresh=nms_thresh, stats=stats)
+                                           thresh=nms_thresh, stats=stats, **nms_opts)
     if verbose:
         print("keeping %s/%s polyhedra" % (int(keep.sum()), len(keep)))
     out = pointsi[keep], probi[keep], disti[keep], order[keep]
@@ -201,13 +231,16 @@ def non_maximum_suppression_3d_sparse(dist, prob, points, rays, b=2, nms_thresh=
 
 
 def non_maximum_suppression_3d_inds(dist, points, rays, scores, thresh=0.5, use_bbox=True,
-                                    use_kdtree=True, verbose=1, *, stats=None, device="cuda"):
+                                    use_kdtree=True, verbose=1, *, stats=None, device="cuda",
+                                    **nms_opts):
     """Greedy NMS over 3D star polyhedra, sorted here by ``scores`` (the
     reference sorts again even when :func:`non_maximum_suppression_3d_sparse`
     has sorted already, which puts equal scores back in ascending list
     order). Returns bool survivors in the given order (a tensor for tensor
     input, else a numpy array). ``use_bbox``, ``use_kdtree`` and ``verbose``
-    change nothing."""
+    change nothing; ``nms_opts`` as in the module docstring (``samples``:
+    the lattice's points per axis, 12 by default)."""
+    samples = _samples(nms_opts, LATTICE_S)
     as_numpy = not isinstance(dist, torch.Tensor)
     dist = as_tensor_on(dist, device)
     points = as_tensor_on(points, dist.device)
@@ -218,5 +251,6 @@ def non_maximum_suppression_3d_inds(dist, points, rays, scores, thresh=0.5, use_
     ray_dirs, faces = ray_tensors(rays, dist.device)
     survivors = torch.empty(len(ind), dtype=torch.bool, device=dist.device)
     survivors[ind] = nms_polyhedra(dist[ind].to(torch.float32), points[ind].to(torch.float32),
-                                   ray_dirs, faces, thresh=float(thresh), stats=stats)
+                                   ray_dirs, faces, thresh=float(thresh), stats=stats,
+                                   samples=samples)
     return survivors.cpu().numpy() if as_numpy else survivors

@@ -11,8 +11,9 @@ decision for one pair is, in order:
 2. the analytic bounds of ``_bounds_block_2d`` (inscribed/outer-disc lens
    bounds and the bbox intersection) when they decide it;
 3. otherwise the sampled cascade: the 8x8 midpoint-grid fraction decides
-   when it is at least ``CASCADE_MARGIN`` from ``fstar``, else the 16x16
-   fraction decides; both through :func:`.pair_overlap.pair_frac`, which is
+   when it is at least ``CASCADE_MARGIN`` from ``fstar``, else the fine
+   grid's, ``samples`` x ``samples`` (16 by default, the reference's
+   ``samples``); both through :func:`.pair_overlap.pair_frac`, which is
    the CUDA pair kernel on the GPU.
 
 For N <= ``DENSE_MAX`` the reference skips step 2 (its dense path); so does
@@ -21,9 +22,11 @@ this port.
 In 3D (:func:`nms_polyhedra`) the steps are the same with the reference's
 3D rule: the ball-lens and bbox bounds of ``_bounds_block_3d``, then the
 exact overlap of ``_overlap_block_3d``, the polyhedra's common voxels
-counted on an integer lattice of at most S = 12 points per axis inside the
-bbox intersection and weighted by the lattice stride (plain torch: the
-reference runs no Pallas kernel there); no bounds for N <= ``DENSE_MAX_3D``.
+counted on an integer lattice of at most S points per axis inside the
+bbox intersection (``samples``: 12 by default, as the reference's host
+NMS; its device path runs 10) and weighted by the lattice stride (plain
+torch: the reference runs no Pallas kernel there); no bounds for N <=
+``DENSE_MAX_3D``.
 
 The greedy result is the unique fixpoint of keep[j] = not any(keep[i] and
 sup(i, j), i < j), so any evaluation order gives the same keep flags as the
@@ -52,7 +55,8 @@ CASCADE_MARGIN = 0.1
 DENSE_MAX = 256
 DENSE_MAX_3D = 32
 LATTICE_S = 12
-LATTICE_PAIRS = 64     # pairs per exact-overlap step (bounds the (pairs, S^3, 8) temporaries)
+# pairs per exact-overlap step at LATTICE_S (bounds the (pairs, S^3, 8) temporaries)
+LATTICE_PAIRS = 64
 LATTICE_PAIRS_CUDA = 2048  # the same on a GPU (fewer, larger launches)
 LATTICE_BUDGET = 1024  # exact pairs per greedy round in 3D (CPU)
 LATTICE_BUDGET_CUDA = 16384  # the same on a GPU, which runs more pairs at once
@@ -187,9 +191,11 @@ def _greedy_fixpoint(N, i, j, sup, keep):
         keep = new
 
 
-def _cascade(dist, points, lo, hi, area, i, j, thresh, counts):
-    """Sampled-cascade verdicts (bool) for the pairs (i, j); adds the number
-    of pairs that the S = 16 grid decides to ``counts["n_fine_pairs"]``."""
+def _cascade(dist, points, lo, hi, area, i, j, thresh, counts, samples):
+    """Sampled-cascade verdicts (bool) for the pairs (i, j): the
+    ``CASCADE_S`` grid, then the fine ``samples`` grid within
+    ``CASCADE_MARGIN``; adds the number of pairs that the fine grid decides
+    to ``counts["n_fine_pairs"]``."""
     plo = torch.maximum(lo[i], lo[j])
     ext = torch.clamp_min(torch.minimum(hi[i], hi[j]) - plo, 0.0)
     fstar = (thresh * (torch.minimum(area[i], area[j]) + 1e-10)
@@ -200,20 +206,20 @@ def _cascade(dist, points, lo, hi, area, i, j, thresh, counts):
     fine = torch.nonzero(torch.abs(frac8 - fstar) < CASCADE_MARGIN).flatten()
     counts["n_fine_pairs"] += fine.numel()
     if fine.numel():
-        frac16 = pair_frac(d_r[fine], p_r[fine], d_c[fine], p_c[fine],
-                           plo[fine], ext[fine], S=16)
-        sup[fine] = frac16 > fstar[fine]
+        frac_fine = pair_frac(d_r[fine], p_r[fine], d_c[fine], p_c[fine],
+                              plo[fine], ext[fine], S=samples)
+        sup[fine] = frac_fine > fstar[fine]
     return sup
 
 
-def nms_polygons(dist, points, thresh=0.5, stats=None):
+def nms_polygons(dist, points, thresh=0.5, stats=None, samples=16):
     """Greedy NMS over score-sorted 2D star polygons.
 
     dist (N, R) f32, points (N, 2) (full-resolution row, col), both sorted
-    by descending score and on one device. Returns keep (N,) bool on that
-    device. ``stats``, if a dict, receives pair counts: bbox pairs, exact
-    pairs (the S = 8 grid), those of them that the S = 16 grid decides, and
-    rounds."""
+    by descending score and on one device; ``samples`` (>= 1) the fine
+    grid's side. Returns keep (N,) bool on that device. ``stats``, if a
+    dict, receives pair counts: bbox pairs, exact pairs (the S = 8 grid),
+    those of them that the fine grid decides, and rounds."""
     N = dist.shape[0]
     dev = dist.device
     if N <= 1:
@@ -245,14 +251,14 @@ def nms_polygons(dist, points, thresh=0.5, stats=None):
 
     counts = {"n_fine_pairs": 0}
     keep, n_eval, n_rounds = _resolve(N, i, j, sup, amb, lambda t: _cascade(
-        dist, points, lo, hi, area, i[t], j[t], thresh, counts))
+        dist, points, lo, hi, area, i[t], j[t], thresh, counts, samples))
     if stats is not None:
         stats.update(n_candidates=N, n_pairs=int(i.numel()), n_eval_pairs=n_eval,
                      n_rounds=n_rounds, n_survivors=int(keep.sum().item()), **counts)
     return keep
 
 
-def _lattice_overlap(points, lo, hi, vol, inv, valid, i, j, thresh, S=LATTICE_S):
+def _lattice_overlap(points, lo, hi, vol, inv, valid, i, j, thresh, S):
     """Exact-overlap verdicts (bool) for the polyhedron pairs (i, j): the
     common voxels counted on the integer lattice inside the bbox
     intersection (ceil/floor of its corners, stride max(ceil(n_vox/S), 1)
@@ -282,12 +288,13 @@ def _lattice_overlap(points, lo, hi, vol, inv, valid, i, j, thresh, S=LATTICE_S)
     return inter / (torch.minimum(vol[i], vol[j]) + 1e-10) > thresh
 
 
-def nms_polyhedra(dist, points, ray_dirs, faces, thresh=0.5, stats=None):
+def nms_polyhedra(dist, points, ray_dirs, faces, thresh=0.5, stats=None, samples=LATTICE_S):
     """Greedy NMS over score-sorted 3D star polyhedra.
 
     dist (N, R) f32, points (N, 3) (full-resolution z, y, x), both sorted
     by descending score, and the rays' ``ray_dirs`` (R, 3) / ``faces``
-    (F, 3), all on one device. Returns keep (N,) bool on that device.
+    (F, 3), all on one device; ``samples`` (>= 1) the exact test's lattice
+    points per axis. Returns keep (N,) bool on that device.
     ``stats``, if a dict, receives pair counts and ``exact_s``, the seconds
     spent in the exact lattice test.
 
@@ -320,12 +327,14 @@ def nms_polyhedra(dist, points, ray_dirs, faces, thresh=0.5, stats=None):
     inv, valid = polyhedron_face_inverses(dist, ray_dirs, faces)
     on_gpu = dev.type == "cuda"
     budget = LATTICE_BUDGET_CUDA if on_gpu else LATTICE_BUDGET
-    step = LATTICE_PAIRS_CUDA if on_gpu else LATTICE_PAIRS
+    # pairs per step: the temporaries of LATTICE_S's step at any lattice
+    step = max(1, int((LATTICE_PAIRS_CUDA if on_gpu else LATTICE_PAIRS)
+                      * (LATTICE_S / samples) ** 3))
 
     def exact(i, j):
         t0 = time.perf_counter()
         out = torch.cat([
-            _lattice_overlap(points, lo, hi, vol, inv, valid, i[c], j[c], thresh)
+            _lattice_overlap(points, lo, hi, vol, inv, valid, i[c], j[c], thresh, samples)
             for c in torch.split(torch.arange(i.numel(), device=dev), step)])
         if on_gpu:
             torch.cuda.synchronize(dev)

@@ -3,8 +3,10 @@
 
 For a flat list of P pairs, the fraction of an S x S midpoint grid over the
 pair's bbox intersection (``plo``, ``ext``) that lies inside both polygons.
-On CUDA tensors it runs in ``csrc/pair_overlap.cu`` (a wedge lookup per
-sample, 16 or 32 lanes per pair); on CPU tensors in :func:`pair_frac_plain`,
+Any S >= 1, as the TPU kernel: the 2D NMS runs S = 8 and its fine grid,
+``samples`` (16 by default). On CUDA tensors it runs in
+``csrc/pair_overlap.cu`` (a wedge lookup per sample, up to 32 lanes per
+pair); on CPU tensors in :func:`pair_frac_plain`,
 which follows the TPU kernel's ``_inside_body`` step for step (the
 cross-product wedge rule, a walk over every wedge), so that the two agree
 bit for bit.
@@ -25,6 +27,7 @@ KERNEL = CudaKernel(
     extra_flags=("-fmad=false",))
 
 _PLAIN_CHUNK = 4096  # pairs per step of the plain version (bounds its memory)
+S_MAX = 46340        # the largest S whose S * S samples fit an int32
 
 
 @functools.lru_cache(maxsize=None)
@@ -39,11 +42,22 @@ def trig_table(R, device=None):
     return torch.from_numpy(t).to(device)
 
 
-def _sample_grid(S, device):
-    i = torch.arange(S * S, device=device)
-    gr = ((i // S).to(torch.float32) + 0.5) / float(S)
-    gc = ((i % S).to(torch.float32) + 0.5) / float(S)
-    return gr, gc
+@functools.lru_cache(maxsize=None)
+def _sample_grid(S, device=None):
+    """The grid's (S * S,) f32 row and column fractions (i // S + 0.5) / S
+    and (i % S + 0.5) / S as the TPU kernel's formula computes where XLA
+    compiles it: times f32(1 / S), the reciprocal rounded once (a division
+    at S = 8 and 16, powers of two). Made in numpy on the host, so that it
+    is the same on every device."""
+    i = np.arange(S * S)
+    inv = _f32_reciprocal(S)
+    gr = ((i // S).astype(np.float32) + np.float32(0.5)) * inv
+    gc = ((i % S).astype(np.float32) + np.float32(0.5)) * inv
+    return torch.from_numpy(gr).to(device), torch.from_numpy(gc).to(device)
+
+
+def _f32_reciprocal(n):
+    return np.float32(1) / np.float32(n)
 
 
 def _inside_plain(d, p_r, p_c, qr, qc, trig):
@@ -81,26 +95,29 @@ def _inside_plain(d, p_r, p_c, qr, qc, trig):
 
 
 def pair_frac_plain(d_r, p_r, d_c, p_c, plo, ext, S=16):
-    """Plain PyTorch version of :func:`pair_frac` (any device)."""
+    """Plain PyTorch version of :func:`pair_frac` (any device, any S >= 1)."""
     P, R = d_r.shape
     trig = trig_table(R)
     gr, gc = _sample_grid(S, d_r.device)
+    inv_n = float(_f32_reciprocal(S * S))          # the count times f32(1 / S^2)
     out = torch.empty(P, dtype=torch.float32, device=d_r.device)
-    for i0 in range(0, P, _PLAIN_CHUNK):
-        sl = slice(i0, i0 + _PLAIN_CHUNK)
+    chunk = max(1, min(_PLAIN_CHUNK, _PLAIN_CHUNK * 256 // (S * S)))  # S = 16's memory at most
+    for i0 in range(0, P, chunk):
+        sl = slice(i0, i0 + chunk)
         qr = plo[sl, 0:1] + gr[None] * ext[sl, 0:1]
         qc = plo[sl, 1:2] + gc[None] * ext[sl, 1:2]
         in_r = _inside_plain(d_r[sl], p_r[sl, 0:1], p_r[sl, 1:2], qr, qc, trig)
         in_c = _inside_plain(d_c[sl], p_c[sl, 0:1], p_c[sl, 1:2], qr, qc, trig)
         both = (in_r & in_c).to(torch.float32)
-        out[sl] = both.sum(dim=1) / float(S * S)
+        out[sl] = both.sum(dim=1) * inv_n
     return out
 
 
 def pair_frac_cuda(d_r, p_r, d_c, p_c, plo, ext, S=16):
     """Launch ``csrc/pair_overlap.cu`` on CUDA f32 tensors."""
-    if S not in (8, 16):
-        raise ValueError(f"S must be 8 or 16, got {S}")
+    S = int(S)
+    if not 1 <= S <= S_MAX:
+        raise ValueError(f"S must be in [1, {S_MAX}], got {S}")
     P, R = d_r.shape
     args = [t.to(torch.float32).contiguous() for t in (d_r, p_r, d_c, p_c, plo, ext)]
     for t, cols in zip(args, (R, 2, R, 2, 2, 2)):
@@ -120,7 +137,8 @@ def pair_frac(d_r, p_r, d_c, p_c, plo, ext, S=16):
     """S x S midpoint-grid overlap fraction for a flat pair list.
 
     d_r, d_c (P, R) dists of the two polygons, p_r, p_c (P, 2) centres,
-    plo, ext (P, 2) corner and extent of the bbox intersection; S in {8, 16}.
+    plo, ext (P, 2) corner and extent of the bbox intersection; any S >= 1
+    (up to ``S_MAX``, where S * S still fits an int32).
     Returns (P,) float32."""
     if d_r.is_cuda:
         return pair_frac_cuda(d_r, p_r, d_c, p_c, plo, ext, S)

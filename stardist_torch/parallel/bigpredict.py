@@ -77,7 +77,9 @@ def predict_instances_big_sharded(model, img, axes, block_size, min_overlap, con
     """Block-wise instance prediction with each batch of blocks forwarded
     over ``devices`` (reference bigpredict.py:27-209). Returns
     ``(labels_out, polys_all)`` as ``StarDistBase.predict_instances_big``
-    does; ``img`` must be normalized. ``kwargs`` go to the NMS.
+    does; ``img`` must be normalized. ``kwargs`` go to the NMS (what
+    ``predict_instances`` takes as ``nms_kwargs``, given flat as in the
+    reference: ``samples`` and the scheduling options among them).
     ``show_progress`` shows nothing, as in the reference. ``timings``, if a
     dict, receives the seconds spent waiting for the reader
     (``read_wait``), in the forwards (``forward``) and in the per-block

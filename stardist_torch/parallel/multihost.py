@@ -84,14 +84,16 @@ def _allgather_tables(my, group, n_procs, stats=None):
 def predict_instances_big_multihost(model, img, axes, block_size, min_overlap, context=None,
                                     labels_out=None, labels_out_dtype=np.int32,
                                     prob_thresh=None, nms_thresh=None, stitch="replicated", *,
-                                    stats=None, **kwargs):
+                                    stats=None, nms_kwargs=None, **kwargs):
     """Block-wise instance prediction spread over the ranks of the default
     process group (reference multihost.py:74-282). Returns ``(labels_out,
     polys_all)``; see the module docstring for the two stitch modes. ``img``
     is the normalized whole image (every rank holds it, or a zarr-like view
-    of it). ``kwargs`` go to ``predict_sparse``. ``stats``, if a dict,
-    receives this rank's ``blocks`` and the ``bytes`` and seconds
-    (``exchange_s``) of its all-gathers."""
+    of it). ``kwargs`` go to ``predict_sparse``; ``nms_kwargs`` (a dict) to
+    each block's NMS, as ``predict_instances``' (the reference's NMS
+    options: ``samples``, and the scheduling ones, which change nothing).
+    ``stats``, if a dict, receives this rank's ``blocks`` and the ``bytes``
+    and seconds (``exchange_s``) of its all-gathers."""
     if stitch not in ("replicated", "partitioned"):
         raise ValueError(f"unknown stitch mode: {stitch!r}")
     multiclass = model._is_multiclass()
@@ -101,17 +103,18 @@ def predict_instances_big_multihost(model, img, axes, block_size, min_overlap, c
         prob_thresh = model.thresholds.prob
     if nms_thresh is None:
         nms_thresh = model.thresholds.nms
+    nms_kwargs = dict(nms_kwargs or {})
     if ndim == 3:
         from ..nms import non_maximum_suppression_3d_sparse as _nms
         rays = model.rays
 
         def nms_sparse(d, p, pts):
-            return _nms(d, p, pts, rays, nms_thresh=nms_thresh, device=dev)
+            return _nms(d, p, pts, rays, nms_thresh=nms_thresh, device=dev, **nms_kwargs)
     else:
         from ..nms import non_maximum_suppression_sparse as _nms
 
         def nms_sparse(d, p, pts):
-            return _nms(d, p, pts, nms_thresh=nms_thresh, device=dev)
+            return _nms(d, p, pts, nms_thresh=nms_thresh, device=dev, **nms_kwargs)
 
     pid, n_procs, group = world()
     if n_procs > 1:

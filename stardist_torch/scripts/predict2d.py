@@ -51,7 +51,10 @@ def make_parser(ndim):
 def run(args, model_cls, ndim):
     """Predict ``args.input`` with ``model_cls(None, name=args.model,
     basedir=args.modeldir)`` and write the labels (uint16 below 2^16
-    labels, else int32) to ``args.outdir``; returns (labels, details)."""
+    labels, else int32) to ``args.outdir``; returns (labels, details). An
+    in-process caller may set ``args.nms_kwargs``, a dict that goes to
+    ``predict_instances`` as its ``nms_kwargs`` (the NMS's ``samples``, for
+    one; the parser, as the reference's, has no such option)."""
     from ..core.normalize import normalize
 
     img = _imread(args.input, ndim)
@@ -61,7 +64,7 @@ def run(args, model_cls, ndim):
     labels, polys = model.predict_instances(
         x, axes=args.axes, n_tiles=n_tiles,
         prob_thresh=args.prob_thresh, nms_thresh=args.nms_thresh,
-        verbose=args.verbose)
+        verbose=args.verbose, nms_kwargs=getattr(args, "nms_kwargs", None))
     outdir = Path(args.outdir)
     outdir.mkdir(parents=True, exist_ok=True)
     name = args.name or (Path(args.input).stem + ".labels.tif")

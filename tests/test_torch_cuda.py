@@ -159,15 +159,17 @@ def _pairs(P, R, dev, seed):
     return d_r, p_r, d_c, p_c, plo, ext
 
 
-@pytest.mark.parametrize("S", [8, 16])
+@pytest.mark.parametrize("S", [8, 16, 3, 10, 12, 24])
 @pytest.mark.parametrize("R", [32, 16, 64, 3, 128])
 def test_pair_kernel_matches_plain(cuda_device, S, R):
     """Random pairs, and pairs whose samples sit where the kernel's wedge
     lookup is most likely to go wrong (on a ray, +-1 ulp off it, at the
-    centre, |u| tiny or huge, theta near +-pi)."""
+    centre, |u| tiny or huge, theta near +-pi), with S's extent, so that
+    the offset is a sample of the grid; at the cascade's two grids (8, 16)
+    and at any other S the NMS's samples option sets."""
     from chip_smoke import adversarial_pairs
     args = [torch.cat(ts) for ts in zip(_pairs(20000, R, cuda_device, S + R),
-                                         adversarial_pairs(R, cuda_device))]
+                                         adversarial_pairs(R, cuda_device, extents=(S,)))]
     n0 = tpo.KERNEL.launches
     got = tpo.pair_frac(*args, S=S)
     torch.cuda.synchronize()
@@ -586,17 +588,51 @@ def test_resnet_forward_on_card(cuda_device):
 
 
 def test_3d_device_path_fetch_false_returns_cuda_tensors(cuda_device):
+    """The 3D device path runs the reference's device lattice, S = 10."""
     img, _ = _nuclei3d((32, 96, 96), 12, 3)
     gm = StarDist3D(None, "3D_demo", "models/examples", device=cuda_device)
-    lab, det = gm.predict_instances(img)
+    lab, det = gm.predict_instances(img, nms_kwargs={"samples": 10})
     lab_d, det_d = gm.predict_instances_device(img)
     assert np.array_equal(lab_d, lab) and lab.max() > 0
     lab_t, det_t = gm.predict_instances_device(img, fetch=False)
     assert lab_t.is_cuda and lab_t.dtype == torch.int32
     assert all(det_t[k].is_cuda for k in ("dist", "points", "prob"))
     assert np.array_equal(lab_t.cpu().numpy(), lab)
-    lab_s, _ = gm.predict_instances(img, sparse=False)
+    lab_s, _ = gm.predict_instances(img, sparse=False, nms_kwargs={"samples": 10})
     assert np.array_equal(lab_s, lab)
+
+
+@pytest.mark.parametrize("S", [6, 10, 12])
+def test_3d_nms_at_samples_on_card_equals_cpu(cuda_device, S):
+    """The CPU's 3D candidates through the card's and the CPU's NMS and
+    render at lattice S: labels and survivors equal."""
+    img, _ = _nuclei3d((32, 96, 96), 12, 3)
+    cm = StarDist3D(None, "3D_demo", "models/examples", device="cpu")
+    gm = StarDist3D(None, "3D_demo", "models/examples", device=cuda_device)
+    prob, dist, points = cm._predict_sparse(img)
+    lab_c, det_c = cm._instances_from_prediction(img.shape, prob, dist, points, samples=S)
+    lab_g, det_g = gm._instances_from_prediction(
+        img.shape, *(t.to(cuda_device) for t in (prob, dist, points)), samples=S)
+    assert np.array_equal(lab_g, lab_c) and lab_c.max() > 0
+    for k in ("points", "prob", "dist"):
+        assert np.array_equal(det_g[k], det_c[k])
+
+
+@pytest.mark.parametrize("S", [4, 10, 12, 20])
+def test_2d_nms_at_samples_on_card_equals_cpu(cuda_device, S):
+    """The CPU's 2D candidates through the card's NMS (the pair kernel at
+    the fine grid S) and the CPU's: the same keep flags."""
+    from stardist_torch.nms import non_maximum_suppression_inds
+    cm = StarDist2D(None, "2D_demo", "models/examples", device="cpu")
+    img, _ = _nuclei((512, 512), 120, 5)
+    prob, dist, points = cm._predict_sparse(img)
+    o = torch.argsort(prob, descending=True, stable=True)
+    args = dist[o], points[o], prob[o]
+    keep_c = non_maximum_suppression_inds(*args, samples=S)
+    n0 = tpo.KERNEL.launches
+    keep_g = non_maximum_suppression_inds(*(t.to(cuda_device) for t in args), samples=S)
+    assert tpo.KERNEL.launches > n0
+    assert torch.equal(keep_g.cpu(), keep_c) and 0 < int(keep_c.sum()) < len(keep_c)
 
 
 def _graft(cuda_device, Model, Config, name, n_classes):

@@ -430,15 +430,19 @@ def test_instances_equal_reference_3d(demo3d, img3d, kw):
     with reference_forward(tm, jm):
         lt, dt = tm.predict_instances(img3d, **kw)
         if "sparse" not in kw:
+            # the device path runs the reference's device lattice, S = 10
             ld, dd = tm.predict_instances_device(img3d, prob_thresh=0.7)
             lf, df = tm.predict_instances_device(img3d, prob_thresh=0.7, fetch=False)
+            l10, d10 = tm.predict_instances(img3d, nms_kwargs={"samples": 10}, **kw)
     assert np.array_equal(lt, lj)
     _same_details(dt, dj, ("points", "prob", "dist", "class_prob", "class_id"), n_min=3)
     if "sparse" not in kw:
-        assert np.array_equal(ld, lt)
-        _same_details(dd, dt, n_min=3)
+        lj10, dj10 = jm.predict_instances(img3d, nms_kwargs={"samples": 10}, **kw)
+        assert np.array_equal(l10, lj10) and np.array_equal(ld, l10)
+        _same_details(d10, dj10, n_min=3)
+        _same_details(dd, d10, n_min=3)
         assert isinstance(df["class_id"], torch.Tensor)
-        assert np.array_equal(df["class_prob"].numpy(), dt["class_prob"])
+        assert np.array_equal(df["class_prob"].numpy(), d10["class_prob"])
 
 
 def test_three_channel_input_predicts_as_the_reference(small):

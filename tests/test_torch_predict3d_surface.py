@@ -19,7 +19,7 @@ from stardist_torch import geometry as tgeom
 from stardist_torch import nms as tnms
 from stardist_torch.matching import matching, relabel_sequential
 from stardist_torch.models import Config3D, StarDist3D
-from stardist_torch.models.model3d import _relabel_sequential
+from stardist_torch.models.model3d import DEVICE_LATTICE_S, _relabel_sequential
 from stardist_torch.ops.nms import LATTICE_S, nms_polyhedra
 from stardist_torch.ops.polyhedron import ray_tensors
 from stardist_torch.rays3d import Rays_GoldenSpiral
@@ -179,11 +179,13 @@ def test_geometry_helpers_equal_reference():
 
 
 @pytest.mark.parametrize("n,thresh", [(200, 0.3), (500, 0.4)])
-def test_nms_keep_flags_equal_banded_traced(n, thresh):
+@pytest.mark.parametrize("S", [DEVICE_LATTICE_S, LATTICE_S])
+def test_nms_keep_flags_equal_banded_traced(S, n, thresh):
     """Clustered, overlapping candidates in descending-score order
     (tests/test_nms_device.py's field): the port's nms_polyhedra keeps what
-    the reference's device NMS keeps, at the port's lattice S = 12 (the
-    reference's host NMS's; its device path runs S = 10)."""
+    the reference's device NMS keeps, at the device path's lattice S = 10
+    (the reference's predict_instances_device) and at S = 12 (its host
+    NMS's, the default of predict_instances)."""
     rays = RaysJax(16)
     rng = np.random.RandomState(n)
     n_obj = n // 8
@@ -202,19 +204,21 @@ def test_nms_keep_flags_equal_banded_traced(n, thresh):
     keep, flags, _ = _nms3d_banded_traced(
         jnp.asarray(d), jnp.asarray(p), jnp.asarray(rays.vertices, jnp.float32),
         jnp.asarray(rays.faces, jnp.int32), jnp.int32(n), jnp.float32(thresh), (1, 1, 1), 2,
-        Q, Npad // Q, Q, Q * Q, LATTICE_S)
+        Q, Npad // Q, Q, Q * Q, S)
     assert all(bool(f) for f in flags)
     keep = np.asarray(keep)[:n]
     ray_dirs, faces = ray_tensors(Rays_GoldenSpiral(16))
     got = nms_polyhedra(torch.from_numpy(dist), torch.from_numpy(points), ray_dirs, faces,
-                        thresh).numpy()
+                        thresh, samples=S).numpy()
     assert 0 < keep.sum() < n // 2
     assert np.array_equal(got, keep)
 
 
 def test_predict_instances_device_equals_predict_instances(setup):
+    """The 3D device path is predict_instances at the reference's device
+    lattice, nms_kwargs={"samples": 10}."""
     img, _, _, tm = setup
-    lab, det = tm.predict_instances(img)
+    lab, det = tm.predict_instances(img, nms_kwargs={"samples": DEVICE_LATTICE_S})
     assert lab.max() > 3
     lab_d, det_d = tm.predict_instances_device(img)
     assert np.array_equal(lab_d, lab) and lab_d.dtype == np.int32
@@ -227,7 +231,8 @@ def test_predict_instances_device_equals_predict_instances(setup):
     # a pre-staged tensor (already normalized, divisible by the stride)
     crop = img[:8, :16, :16]
     lab_x, _ = tm.predict_instances_device(torch.from_numpy(crop.copy()), prob_thresh=0.3)
-    assert np.array_equal(lab_x, tm.predict_instances(crop, prob_thresh=0.3)[0])
+    assert np.array_equal(lab_x, tm.predict_instances(
+        crop, prob_thresh=0.3, nms_kwargs={"samples": DEVICE_LATTICE_S})[0])
 
 
 @pytest.mark.parametrize("case", ["background", "full", "overlap", "positive overlap"])
