@@ -51,6 +51,7 @@ import torch.distributed as dist
 
 from ..core.axes import axes_check_and_normalize, axes_dict, move_image_axes
 from ..core.normalize import NoNormalizer, Normalizer
+from ..core.profiling import span
 from ..core.tiling import tile_iterator
 from ..parallel.mesh import (broadcast_numpy_rng, broadcast_parameters, data_parallel_slice,
                              world)
@@ -309,12 +310,17 @@ def _drain(generator):
     """A method that runs the generator method ``generator`` to its end and
     returns its last yield (the reference's ``predict``, ``predict_sparse``
     and ``predict_instances``, base.py:1368-1571); it takes the
-    generator's signature and docstring."""
+    generator's signature and docstring. The whole call is the root span
+    ``stardist.<method>`` (:class:`..core.profiling.span`) of the stage
+    spans inside it."""
+    root = "stardist." + generator.__name__.strip("_").removesuffix("_generator")
+
     @functools.wraps(generator)
     def drain(self, *args, **kwargs):
         r = None
-        for r in generator(self, *args, **kwargs):
-            pass
+        with span(root):
+            for r in generator(self, *args, **kwargs):
+                pass
         return r
     return drain
 
@@ -1070,7 +1076,8 @@ class StarDistBase:
         tensor is already there."""
         if isinstance(x, torch.Tensor):
             return x
-        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(self.device)
+        with span("stardist.upload"):
+            return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(self.device)
 
     def _border_key(self, b, x, axes_net, resizer):
         """Per-axis (lo, hi) candidate exclusion in output-grid units: the
@@ -1167,13 +1174,16 @@ class StarDistBase:
         holds a yield."""
         if prob_thresh is None:
             prob_thresh = self.thresholds.prob
-        if isinstance(img, torch.Tensor):
-            x = self._prestaged(img, axes, normalizer, n_tiles)
-            axes_net, resizer, n_tiles = self.config.axes, None, (1,) * x.dim()
-        else:
-            x, axes_net, resizer, n_tiles = self._predict_setup(img, axes, normalizer, n_tiles)
-        grid = torch.tensor(self.config.grid, device=self.device)
-        t_fwd = t_ext = 0.0
+        with span("stardist.prepare"):
+            if isinstance(img, torch.Tensor):
+                x = self._prestaged(img, axes, normalizer, n_tiles)
+                axes_net, resizer, n_tiles = self.config.axes, None, (1,) * x.dim()
+            else:
+                x, axes_net, resizer, n_tiles = self._predict_setup(img, axes, normalizer,
+                                                                    n_tiles)
+            grid = torch.tensor(self.config.grid, device=self.device)
+        if timings is not None:
+            timings.update(forward=0.0, extract=0.0)
         one_tile = np.prod(n_tiles) == 1
         if not one_tile:
             sp = [i for i, a in enumerate(axes_net) if a != "C"]
@@ -1183,51 +1193,46 @@ class StarDistBase:
             for tile, s_src, s_dst in self._tiles(x, axes_net, n_tiles):
                 s_src = [s_src[i] for i in sp]
                 s_dst = [s_dst[i] for i in sp]
-                t0 = time.perf_counter()
-                outs = self.net(self._upload(tile))
-                _sync(self.device)
-                t1 = time.perf_counter()
-                b_key = tuple((s_s.start + (bb if s_d.start == 0 else 0),
-                               (t_len - s_s.stop) + (bb if s_d.stop == sh else 0))
-                              for s_s, s_d, t_len, sh in zip(s_src, s_dst, outs[0].shape,
-                                                             out_sh))
-                vals, d, points, *pc = self._extract(outs[0], outs[1], float(prob_thresh), b_key,
-                                                     max_candidates, *outs[2:])
-                offset = torch.tensor([s_d.start - s_s.start for s_s, s_d in zip(s_src, s_dst)],
-                                      device=self.device)
-                parts.append((vals, d, (points + offset) * grid, *pc))
-                _sync(self.device)
-                t_fwd += t1 - t0
-                t_ext += time.perf_counter() - t1
+                with span("stardist.forward", timings, "forward"):
+                    outs = self.net(self._upload(tile))
+                    _sync(self.device)
+                with span("stardist.extract", timings, "extract"):
+                    b_key = tuple((s_s.start + (bb if s_d.start == 0 else 0),
+                                   (t_len - s_s.stop) + (bb if s_d.stop == sh else 0))
+                                  for s_s, s_d, t_len, sh in zip(s_src, s_dst, outs[0].shape,
+                                                                 out_sh))
+                    vals, d, points, *pc = self._extract(outs[0], outs[1], float(prob_thresh),
+                                                         b_key, max_candidates, *outs[2:])
+                    offset = torch.tensor([s_d.start - s_s.start
+                                           for s_s, s_d in zip(s_src, s_dst)], device=self.device)
+                    parts.append((vals, d, (points + offset) * grid, *pc))
+                    _sync(self.device)
                 del outs
                 yield
-            t1 = time.perf_counter()
-            vals, d, points, *pc = (torch.cat(t) for t in zip(*parts))
-            inside = torch.all(points < self._inside_bounds(axes_net, resizer), dim=1)
-            vals, d, points, pc = vals[inside], d[inside], points[inside], [c[inside] for c in pc]
-            _sync(self.device)
-            t_ext += time.perf_counter() - t1
+            with span("stardist.extract", timings, "extract"):
+                vals, d, points, *pc = (torch.cat(t) for t in zip(*parts))
+                inside = torch.all(points < self._inside_bounds(axes_net, resizer), dim=1)
+                vals, d, points = vals[inside], d[inside], points[inside]
+                pc = [c[inside] for c in pc]
+                _sync(self.device)
         else:
             if device_dist or resizer is None:
                 b_key = self._border_key(b, x, axes_net, resizer)
             else:
                 b_key = (b if b is not None and not np.isscalar(b)
                          else ((-1, -1) if b is None else (b, b),) * len(self.config.grid))
-            t0 = time.perf_counter()
-            outs = self.net(self._upload(x))
-            _sync(self.device)
-            t1 = time.perf_counter()
-            vals, d, points, *pc = self._extract(outs[0], outs[1], float(prob_thresh), b_key,
-                                                 max_candidates, *outs[2:])
-            points = points * grid[None]
-            if not device_dist and resizer is not None:
-                inside = torch.all(points < self._inside_bounds(axes_net, resizer), dim=1)
-                vals, d, points = vals[inside], d[inside], points[inside]
-                pc = [c[inside] for c in pc]
-            _sync(self.device)
-            t_fwd, t_ext = t1 - t0, time.perf_counter() - t1
-        if timings is not None:
-            timings.update(forward=t_fwd, extract=t_ext)
+            with span("stardist.forward", timings, "forward"):
+                outs = self.net(self._upload(x))
+                _sync(self.device)
+            with span("stardist.extract", timings, "extract"):
+                vals, d, points, *pc = self._extract(outs[0], outs[1], float(prob_thresh), b_key,
+                                                     max_candidates, *outs[2:])
+                points = points * grid[None]
+                if not device_dist and resizer is not None:
+                    inside = torch.all(points < self._inside_bounds(axes_net, resizer), dim=1)
+                    vals, d, points = vals[inside], d[inside], points[inside]
+                    pc = [c[inside] for c in pc]
+                _sync(self.device)
         out = (vals, d, *pc, points)
         if fetch:
             out = tuple(t if device_dist and one_tile and i == 1 else t.cpu().numpy()
@@ -1265,7 +1270,8 @@ class StarDistBase:
         ``self.device``. ``show_tile_progress`` shows nothing and
         ``predict_kwargs`` are taken and change nothing, as in the
         reference."""
-        x, axes_net, resizer, n_tiles = self._predict_setup(img, axes, normalizer, n_tiles)
+        with span("stardist.prepare"):
+            x, axes_net, resizer, n_tiles = self._predict_setup(img, axes, normalizer, n_tiles)
         channel = axes_dict(axes_net)["C"]
         if np.prod(n_tiles) > 1:
             grid_dict = dict(zip(axes_net.replace("C", ""), self.config.grid))
@@ -1353,9 +1359,10 @@ class StarDistBase:
             sparse = False
             warnings.warn("Setting sparse to False because return_predict is True")
         nms_kwargs.setdefault("verbose", verbose)
-        shape_inst = self._shape_inst(img, axes)
-        if scale is not None:
-            img, scale = self._zoom(img, axes, scale, verbose)
+        with span("stardist.prepare"):
+            shape_inst = self._shape_inst(img, axes)
+            if scale is not None:
+                img, scale = self._zoom(img, axes, scale, verbose)
         timings = {}
         yield "predict"
         if sparse:
@@ -1369,17 +1376,18 @@ class StarDistBase:
             *pred, points = res
         else:
             nms_kwargs.setdefault("b", b)
-            t0 = time.perf_counter()
-            for res in self._predict_generator(img, axes, normalizer, n_tiles,
-                                               show_tile_progress, fetch=False,
-                                               **predict_kwargs):
-                if res is None:
-                    t1 = time.perf_counter()
-                    yield "tile"
-                    t0 += time.perf_counter() - t1       # the caller's time is not the forward's
-            pred = res
-            _sync(self.device)
-            timings.update(forward=time.perf_counter() - t0)
+            steps = self._predict_generator(img, axes, normalizer, n_tiles, show_tile_progress,
+                                            fetch=False, **predict_kwargs)
+            # each step of the dense prediction (a tile, or the last one and its
+            # result) is a forward span, closed before the caller gets the yield
+            while True:
+                with span("stardist.forward", timings, "forward"):
+                    pred = next(steps)
+                    if pred is not None:
+                        _sync(self.device)
+                if pred is not None:
+                    break
+                yield "tile"
             points = None
         yield "nms"
         prob, dist, *pc = pred
@@ -1561,26 +1569,25 @@ class StarDistBase:
         if scale is not None:
             render_kw["rescale"] = self._rescale(scale)
         counters = {}
-        t0 = time.perf_counter()
-        if points is None:
-            nms = self._nms_dense(dist, prob, prob_thresh, nms_thresh, stats=counters,
-                                  **nms_kwargs)
-        else:
-            nms = self._nms_sparse(dist, prob, points, nms_thresh, stats=counters, **nms_kwargs)
-        points, probi, disti = nms[:3]
-        if prob_class is not None:
-            if len(nms) > 3:                             # sparse: the survivors' indices
-                prob_class = prob_class[nms[3]]
-            else:                                        # dense: at the survivors' grid points
-                g = torch.tensor(self.config.grid, device=points.device)
-                prob_class = prob_class[tuple((points // g).t())]
-            render_kw["prob_class"] = prob_class
-        _sync(self.device)
-        t1 = time.perf_counter()
-        labels, details = self._render_survivors(img_shape, disti, points, probi,
-                                                 return_labels=return_labels, **render_kw)
-        if timings is not None:
-            timings.update(nms=t1 - t0, raster=time.perf_counter() - t1)
+        with span("stardist.nms", timings, "nms"):
+            if points is None:
+                nms = self._nms_dense(dist, prob, prob_thresh, nms_thresh, stats=counters,
+                                      **nms_kwargs)
+            else:
+                nms = self._nms_sparse(dist, prob, points, nms_thresh, stats=counters,
+                                       **nms_kwargs)
+            points, probi, disti = nms[:3]
+            if prob_class is not None:
+                if len(nms) > 3:                         # sparse: the survivors' indices
+                    prob_class = prob_class[nms[3]]
+                else:                                    # dense: at the survivors' grid points
+                    g = torch.tensor(self.config.grid, device=points.device)
+                    prob_class = prob_class[tuple((points // g).t())]
+                render_kw["prob_class"] = prob_class
+            _sync(self.device)
+        with span("stardist.raster", timings, "raster"):
+            labels, details = self._render_survivors(img_shape, disti, points, probi,
+                                                     return_labels=return_labels, **render_kw)
         details["nms_counters"] = counters
         return labels, details
 

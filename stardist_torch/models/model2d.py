@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from ..core.config import BaseConfig
+from ..core.profiling import span
 from ..geometry import dist_to_coord, polygons_to_label
 from ..nms import non_maximum_suppression, non_maximum_suppression_sparse
 from ..ops.nms import nms_polygons
@@ -346,21 +347,26 @@ class StarDist2D(StarDistBase):
                                                     device=points.device)
         labels = None
         if return_labels:
-            small = len(probi) < 2 ** 16 - 1
-            labels = polygons_to_label(disti, points, img_shape, prob=probi,
-                                       scale_dist=rescale,
-                                       out_dtype=torch.uint16 if small else torch.int32)
+            with span("stardist.raster.draw"):
+                small = len(probi) < 2 ** 16 - 1
+                labels = polygons_to_label(disti, points, img_shape, prob=probi,
+                                           scale_dist=rescale,
+                                           out_dtype=torch.uint16 if small else torch.int32)
         if not fetch:
             return labels, dict(dist=disti, points=points, prob=probi,
                                 **_class_details(prob_class, fetch))
         if isinstance(labels, torch.Tensor):
-            labels = labels.cpu().numpy().astype(np.int32)
-        disti, points, probi = (t.cpu().numpy() if isinstance(t, torch.Tensor) else t
-                                for t in (disti, points, probi))
-        coord = dist_to_coord(disti, points, scale_dist=rescale)
-        return labels, dict(dist=disti, coord=coord,
-                            points=points if scaled else points.astype(np.int32), prob=probi,
-                            **_class_details(prob_class, fetch))
+            with span("stardist.raster.fetch"):
+                labels = labels.cpu().numpy()
+            with span("stardist.raster.astype"):
+                labels = labels.astype(np.int32)
+        with span("stardist.raster.details"):
+            disti, points, probi = (t.cpu().numpy() if isinstance(t, torch.Tensor) else t
+                                    for t in (disti, points, probi))
+            coord = dist_to_coord(disti, points, scale_dist=rescale)
+            return labels, dict(dist=disti, coord=coord,
+                                points=points if scaled else points.astype(np.int32),
+                                prob=probi, **_class_details(prob_class, fetch))
 
     def predict_instances_device(self, img, axes=None, normalizer=None, prob_thresh=None,
                                  nms_thresh=None, b=2, verbose=False, fetch=True):

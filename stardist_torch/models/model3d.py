@@ -9,6 +9,7 @@ import torch
 
 from ..core.axes import axes_check_and_normalize
 from ..core.config import BaseConfig
+from ..core.profiling import span
 from ..geometry import polyhedron_to_label
 from ..nms import (non_maximum_suppression_3d, non_maximum_suppression_3d_inds,
                    non_maximum_suppression_3d_sparse)
@@ -354,18 +355,21 @@ class StarDist3D(StarDistBase):
             rays = rays.copy(scale=rescale)
         labels = None
         if return_labels:
-            labels = _relabel_sequential(
-                polyhedron_to_label(disti, points, rays=rays, prob=probi, shape=img_shape,
-                                    overlap_label=overlap_label, verbose=False),
-                overlap_label)
+            with span("stardist.raster.draw"):
+                labels = _relabel_sequential(
+                    polyhedron_to_label(disti, points, rays=rays, prob=probi, shape=img_shape,
+                                        overlap_label=overlap_label, verbose=False),
+                    overlap_label)
         details = dict(dist=disti, points=points, prob=probi, rays=rays,
                        rays_vertices=rays.vertices, rays_faces=rays.faces)
         if not fetch:
             return labels, {**details, **_class_details(prob_class, fetch)}
         if labels is not None:
-            labels = labels.cpu().numpy()
-        details.update((k, details[k].cpu().numpy()) for k in ("dist", "points", "prob"))
-        return labels, {**details, **_class_details(prob_class, fetch)}
+            with span("stardist.raster.fetch"):
+                labels = labels.cpu().numpy()
+        with span("stardist.raster.details"):
+            details.update((k, details[k].cpu().numpy()) for k in ("dist", "points", "prob"))
+            return labels, {**details, **_class_details(prob_class, fetch)}
 
     def predict_instances_device(self, img, axes=None, normalizer=None, prob_thresh=None,
                                  nms_thresh=None, b=2, verbose=False, fetch=True):

@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.profiling import span
 from .ops.nms import LATTICE_S, nms_polygons, nms_polyhedra
 from .ops.polyhedron import ray_tensors
 from .utils import _normalize_grid, as_tensor_on
@@ -68,11 +69,12 @@ def _dense_candidates(dist, prob, grid, prob_thresh, b):
     of :func:`_ind_prob_thresh`'s mask (row-major, as np.where) in
     :func:`descending_order`, points (int64) in full-resolution pixels
     (times ``grid``)."""
-    mask = _ind_prob_thresh(prob, prob_thresh, b)
-    scores = prob[mask]
-    order = descending_order(scores)
-    points = torch.nonzero(mask)[order] * torch.tensor(grid, device=dist.device)
-    return scores[order], dist[mask][order], points
+    with span("stardist.nms.sort"):
+        mask = _ind_prob_thresh(prob, prob_thresh, b)
+        scores = prob[mask]
+        order = descending_order(scores)
+        points = torch.nonzero(mask)[order] * torch.tensor(grid, device=dist.device)
+        return scores[order], dist[mask][order], points
 
 
 def non_maximum_suppression(dist, prob, grid=(1, 1), b=2, nms_thresh=0.5, prob_thresh=0.5,
@@ -143,8 +145,9 @@ def non_maximum_suppression_sparse(dist, prob, points, b=2, nms_thresh=0.5, use_
     assert dist.dim() == 2 and prob.dim() == 1 and points.dim() == 2 \
         and points.shape[-1] == 2 and len(prob) == len(dist) == len(points)
 
-    order = descending_order(prob)
-    probi, disti, pointsi = prob[order], dist[order], points[order]
+    with span("stardist.nms.sort"):
+        order = descending_order(prob)
+        probi, disti, pointsi = prob[order], dist[order], points[order]
     keep = non_maximum_suppression_inds(disti, pointsi, scores=probi,
                                         thresh=nms_thresh, stats=stats, **nms_opts)
     if verbose:
@@ -218,8 +221,9 @@ def non_maximum_suppression_3d_sparse(dist, prob, points, rays, b=2, nms_thresh=
         and dist.shape[-1] == len(rays) and points.shape[-1] == 3 \
         and len(prob) == len(dist) == len(points)
 
-    order = descending_order(prob)
-    probi, disti, pointsi = prob[order], dist[order], points[order]
+    with span("stardist.nms.sort"):
+        order = descending_order(prob)
+        probi, disti, pointsi = prob[order], dist[order], points[order]
     keep = non_maximum_suppression_3d_inds(disti, pointsi, rays, scores=probi,
                                            thresh=nms_thresh, stats=stats, **nms_opts)
     if verbose:
@@ -247,10 +251,11 @@ def non_maximum_suppression_3d_inds(dist, points, rays, scores, thresh=0.5, use_
     scores = as_tensor_on(scores, dist.device)
     assert dist.dim() == 2 and points.dim() == 2 and dist.shape[1] == len(rays) \
         and points.shape[0] == dist.shape[0] == scores.shape[0]
-    ind = descending_order(scores)
+    with span("stardist.nms.sort"):
+        ind = descending_order(scores)
+        dist, points = dist[ind].to(torch.float32), points[ind].to(torch.float32)
     ray_dirs, faces = ray_tensors(rays, dist.device)
     survivors = torch.empty(len(ind), dtype=torch.bool, device=dist.device)
-    survivors[ind] = nms_polyhedra(dist[ind].to(torch.float32), points[ind].to(torch.float32),
-                                   ray_dirs, faces, thresh=float(thresh), stats=stats,
-                                   samples=samples)
+    survivors[ind] = nms_polyhedra(dist, points, ray_dirs, faces, thresh=float(thresh),
+                                   stats=stats, samples=samples)
     return survivors.cpu().numpy() if as_numpy else survivors

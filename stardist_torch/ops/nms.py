@@ -43,8 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-import time
-
+from ..core.profiling import span
 from .pair_overlap import pair_frac
 from .polygon import polygon_areas, polygon_bboxes
 from .polyhedron import (points_in_indexed_polyhedra, polyhedron_bboxes,
@@ -162,33 +161,35 @@ def _resolve(N, i, j, sup, amb, exact, budget=None):
     keep = torch.ones(N, dtype=torch.bool, device=sup.device)
     n_eval = n_rounds = 0
     while True:
-        keep = _greedy_fixpoint(N, i, j, sup, keep)
-        live = amb & keep[i]
-        if budget is not None:
-            live &= keep[j]
-        todo = torch.nonzero(live).flatten()
-        if todo.numel() == 0:
-            return keep, n_eval, n_rounds
-        if budget is not None and todo.numel() > budget:
-            rows = i[todo]
-            todo = todo[rows <= torch.sort(rows).values[budget - 1]]
-        sup[todo] = exact(todo)
-        amb[todo] = False
-        n_eval += todo.numel()
-        n_rounds += 1
+        with span("stardist.nms.round"):
+            keep = _greedy_fixpoint(N, i, j, sup, keep)
+            live = amb & keep[i]
+            if budget is not None:
+                live &= keep[j]
+            todo = torch.nonzero(live).flatten()
+            if todo.numel() == 0:
+                return keep, n_eval, n_rounds
+            if budget is not None and todo.numel() > budget:
+                rows = i[todo]
+                todo = todo[rows <= torch.sort(rows).values[budget - 1]]
+            sup[todo] = exact(todo)
+            amb[todo] = False
+            n_eval += todo.numel()
+            n_rounds += 1
 
 
 def _greedy_fixpoint(N, i, j, sup, keep):
     """Unique fixpoint of keep[j] = not any(keep[i] & sup) over the pairs
     (i, j), i < j; Jacobi iteration from ``keep`` (any start converges)."""
-    i, j = i[sup], j[sup]
-    while True:
-        killed = torch.zeros(N, dtype=torch.bool, device=keep.device)
-        killed[j[keep[i]]] = True
-        new = ~killed
-        if torch.equal(new, keep):
-            return keep
-        keep = new
+    with span("stardist.nms.fixpoint"):
+        i, j = i[sup], j[sup]
+        while True:
+            killed = torch.zeros(N, dtype=torch.bool, device=keep.device)
+            killed[j[keep[i]]] = True
+            new = ~killed
+            if torch.equal(new, keep):
+                return keep
+            keep = new
 
 
 def _cascade(dist, points, lo, hi, area, i, j, thresh, counts, samples):
@@ -196,20 +197,21 @@ def _cascade(dist, points, lo, hi, area, i, j, thresh, counts, samples):
     ``CASCADE_S`` grid, then the fine ``samples`` grid within
     ``CASCADE_MARGIN``; adds the number of pairs that the fine grid decides
     to ``counts["n_fine_pairs"]``."""
-    plo = torch.maximum(lo[i], lo[j])
-    ext = torch.clamp_min(torch.minimum(hi[i], hi[j]) - plo, 0.0)
-    fstar = (thresh * (torch.minimum(area[i], area[j]) + 1e-10)
-             / torch.clamp_min(ext[:, 0] * ext[:, 1], 1e-10))
-    d_r, p_r, d_c, p_c = dist[i], points[i], dist[j], points[j]
-    frac8 = pair_frac(d_r, p_r, d_c, p_c, plo, ext, S=CASCADE_S)
-    sup = frac8 > fstar
-    fine = torch.nonzero(torch.abs(frac8 - fstar) < CASCADE_MARGIN).flatten()
-    counts["n_fine_pairs"] += fine.numel()
-    if fine.numel():
-        frac_fine = pair_frac(d_r[fine], p_r[fine], d_c[fine], p_c[fine],
-                              plo[fine], ext[fine], S=samples)
-        sup[fine] = frac_fine > fstar[fine]
-    return sup
+    with span("stardist.nms.cascade"):
+        plo = torch.maximum(lo[i], lo[j])
+        ext = torch.clamp_min(torch.minimum(hi[i], hi[j]) - plo, 0.0)
+        fstar = (thresh * (torch.minimum(area[i], area[j]) + 1e-10)
+                 / torch.clamp_min(ext[:, 0] * ext[:, 1], 1e-10))
+        d_r, p_r, d_c, p_c = dist[i], points[i], dist[j], points[j]
+        frac8 = pair_frac(d_r, p_r, d_c, p_c, plo, ext, S=CASCADE_S)
+        sup = frac8 > fstar
+        fine = torch.nonzero(torch.abs(frac8 - fstar) < CASCADE_MARGIN).flatten()
+        counts["n_fine_pairs"] += fine.numel()
+        if fine.numel():
+            frac_fine = pair_frac(d_r[fine], p_r[fine], d_c[fine], p_c[fine],
+                                  plo[fine], ext[fine], S=samples)
+            sup[fine] = frac_fine > fstar[fine]
+        return sup
 
 
 def nms_polygons(dist, points, thresh=0.5, stats=None, samples=16):
@@ -227,27 +229,30 @@ def nms_polygons(dist, points, thresh=0.5, stats=None, samples=16):
     dist = dist.to(torch.float32).contiguous()
     points = points.to(torch.float32).contiguous()
     thresh = float(thresh)
-    area = polygon_areas(dist)
-    lo, hi = polygon_bboxes(dist, points)
-    rout = torch.amax(dist, dim=-1)
+    with span("stardist.nms.geometry"):
+        area = polygon_areas(dist)
+        lo, hi = polygon_bboxes(dist, points)
+        rout = torch.amax(dist, dim=-1)
 
-    i, j = _candidate_pairs(points, rout)
-    ext = torch.clamp_min(torch.minimum(hi[i], hi[j]) - torch.maximum(lo[i], lo[j]), 0.0)
-    meet = (ext[:, 0] > 0) & (ext[:, 1] > 0)
-    i, j, ext = i[meet], j[meet], ext[meet]
+    with span("stardist.nms.pairs"):
+        i, j = _candidate_pairs(points, rout)
+        ext = torch.clamp_min(torch.minimum(hi[i], hi[j]) - torch.maximum(lo[i], lo[j]), 0.0)
+        meet = (ext[:, 0] > 0) & (ext[:, 1] > 0)
+        i, j, ext = i[meet], j[meet], ext[meet]
 
     if N <= DENSE_MAX:
         sup = torch.zeros(i.numel(), dtype=torch.bool, device=dev)
         amb = torch.ones(i.numel(), dtype=torch.bool, device=dev)
     else:
-        rin = _inner_radius_2d(dist)
-        dc = torch.sqrt(torch.sum((points[i] - points[j]) ** 2, dim=-1))
-        denom = torch.minimum(area[i], area[j]) + 1e-10
-        ub = torch.minimum(_lens_area_ub(rout[i], rout[j], dc),
-                           ext[:, 0] * ext[:, 1]) / denom
-        lb = _lens_area_lb(rin[i], rin[j], dc) / denom
-        sup = lb > thresh
-        amb = ~sup & ~(ub <= thresh)
+        with span("stardist.nms.bounds"):
+            rin = _inner_radius_2d(dist)
+            dc = torch.sqrt(torch.sum((points[i] - points[j]) ** 2, dim=-1))
+            denom = torch.minimum(area[i], area[j]) + 1e-10
+            ub = torch.minimum(_lens_area_ub(rout[i], rout[j], dc),
+                               ext[:, 0] * ext[:, 1]) / denom
+            lb = _lens_area_lb(rin[i], rin[j], dc) / denom
+            sup = lb > thresh
+            amb = ~sup & ~(ub <= thresh)
 
     counts = {"n_fine_pairs": 0}
     keep, n_eval, n_rounds = _resolve(N, i, j, sup, amb, lambda t: _cascade(
@@ -296,7 +301,8 @@ def nms_polyhedra(dist, points, ray_dirs, faces, thresh=0.5, stats=None, samples
     (F, 3), all on one device; ``samples`` (>= 1) the exact test's lattice
     points per axis. Returns keep (N,) bool on that device.
     ``stats``, if a dict, receives pair counts and ``exact_s``, the seconds
-    spent in the exact lattice test.
+    spent in the exact lattice test (its ``stardist.nms.exact`` spans, each
+    ended by a sync on the card).
 
     The reference's blocked order (``_blocked_greedy``): blocks of the
     ``ROW_BLOCK`` lowest-ranked candidates not yet suppressed. Every
@@ -320,11 +326,12 @@ def nms_polyhedra(dist, points, ray_dirs, faces, thresh=0.5, stats=None, samples
     faces = faces.to(dev, torch.int64)
     thresh = float(thresh)
     dense = N <= DENSE_MAX_3D
-    vol = polyhedron_volumes(dist, ray_dirs, faces)
-    lo, hi = polyhedron_bboxes(dist, points, ray_dirs)
-    rout = torch.amax(dist, dim=-1)
-    rin = None if dense else polyhedron_inner_radius(dist, ray_dirs, faces)
-    inv, valid = polyhedron_face_inverses(dist, ray_dirs, faces)
+    with span("stardist.nms.geometry"):
+        vol = polyhedron_volumes(dist, ray_dirs, faces)
+        lo, hi = polyhedron_bboxes(dist, points, ray_dirs)
+        rout = torch.amax(dist, dim=-1)
+        rin = None if dense else polyhedron_inner_radius(dist, ray_dirs, faces)
+        inv, valid = polyhedron_face_inverses(dist, ray_dirs, faces)
     on_gpu = dev.type == "cuda"
     budget = LATTICE_BUDGET_CUDA if on_gpu else LATTICE_BUDGET
     # pairs per step: the temporaries of LATTICE_S's step at any lattice
@@ -332,46 +339,49 @@ def nms_polyhedra(dist, points, ray_dirs, faces, thresh=0.5, stats=None, samples
                       * (LATTICE_S / samples) ** 3))
 
     def exact(i, j):
-        t0 = time.perf_counter()
-        out = torch.cat([
-            _lattice_overlap(points, lo, hi, vol, inv, valid, i[c], j[c], thresh, samples)
-            for c in torch.split(torch.arange(i.numel(), device=dev), step)])
-        if on_gpu:
-            torch.cuda.synchronize(dev)
-        counts["exact_s"] += time.perf_counter() - t0
+        with span("stardist.nms.exact", counts, "exact_s"):
+            out = torch.cat([
+                _lattice_overlap(points, lo, hi, vol, inv, valid, i[c], j[c], thresh, samples)
+                for c in torch.split(torch.arange(i.numel(), device=dev), step)])
+            if on_gpu:
+                torch.cuda.synchronize(dev)
         return out
 
     suppressed = torch.zeros(N, dtype=torch.bool, device=dev)
     pos = 0
     while pos < N:
-        rows = torch.nonzero(~suppressed[pos:]).flatten()[:ROW_BLOCK] + pos
-        if rows.numel() == 0:
-            break
-        i, j = _candidate_pairs(points, rout, rows)
-        live = ~suppressed[j]
-        i, j = i[live], j[live]
-        if dense:
-            sup = torch.zeros(i.numel(), dtype=torch.bool, device=dev)
-            amb = torch.ones(i.numel(), dtype=torch.bool, device=dev)
-        else:
-            ext = torch.clamp_min(torch.minimum(hi[i], hi[j]) - torch.maximum(lo[i], lo[j]), 0.0)
-            dc = torch.sqrt(torch.sum((points[i] - points[j]) ** 2, dim=-1))
-            denom = torch.minimum(vol[i], vol[j]) + 1e-10
-            ub = torch.minimum(_lens_volume_3d(rout[i], rout[j], dc),
-                               ext[:, 0] * ext[:, 1] * ext[:, 2]) / denom
-            lb = _lens_volume_3d(rin[i], rin[j], dc) / denom
-            sup = lb > thresh
-            amb = ~sup & ~(ub <= thresh)
-            # pairs the bounds decide as not suppressing leave the list
-            live = sup | amb
-            i, j, sup, amb = i[live], j[live], sup[live], amb[live]
-        keep, n_eval, n_rounds = _resolve(N, i, j, sup, amb,
-                                          lambda t: exact(i[t], j[t]), budget)
-        suppressed |= ~keep
-        counts["n_pairs"] += int(i.numel())
-        counts["n_eval_pairs"] += n_eval
-        counts["n_rounds"] += n_rounds
-        pos = int(rows[-1].item()) + 1
+        with span("stardist.nms.block"):
+            rows = torch.nonzero(~suppressed[pos:]).flatten()[:ROW_BLOCK] + pos
+            if rows.numel() == 0:
+                break
+            with span("stardist.nms.pairs"):
+                i, j = _candidate_pairs(points, rout, rows)
+                live = ~suppressed[j]
+                i, j = i[live], j[live]
+            if dense:
+                sup = torch.zeros(i.numel(), dtype=torch.bool, device=dev)
+                amb = torch.ones(i.numel(), dtype=torch.bool, device=dev)
+            else:
+                with span("stardist.nms.bounds"):
+                    ext = torch.clamp_min(torch.minimum(hi[i], hi[j])
+                                          - torch.maximum(lo[i], lo[j]), 0.0)
+                    dc = torch.sqrt(torch.sum((points[i] - points[j]) ** 2, dim=-1))
+                    denom = torch.minimum(vol[i], vol[j]) + 1e-10
+                    ub = torch.minimum(_lens_volume_3d(rout[i], rout[j], dc),
+                                       ext[:, 0] * ext[:, 1] * ext[:, 2]) / denom
+                    lb = _lens_volume_3d(rin[i], rin[j], dc) / denom
+                    sup = lb > thresh
+                    amb = ~sup & ~(ub <= thresh)
+                    # pairs the bounds decide as not suppressing leave the list
+                    live = sup | amb
+                    i, j, sup, amb = i[live], j[live], sup[live], amb[live]
+            keep, n_eval, n_rounds = _resolve(N, i, j, sup, amb,
+                                              lambda t: exact(i[t], j[t]), budget)
+            suppressed |= ~keep
+            counts["n_pairs"] += int(i.numel())
+            counts["n_eval_pairs"] += n_eval
+            counts["n_rounds"] += n_rounds
+            pos = int(rows[-1].item()) + 1
     counts["n_survivors"] = int((~suppressed).sum().item())
     if stats is not None:
         stats.update(counts)
