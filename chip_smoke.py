@@ -3,11 +3,11 @@
     python3 chip_smoke.py [--phases bcdefghijklmnopqrstuvwx]
 
 Phases (each prints one line; any failed check exits non-zero):
-  (a) the card's name and power limit; build the four CUDA kernels from
+  (a) the card's name and power limit; build the five CUDA kernels from
       stardist_torch/csrc (one nvcc each, all at once) and time the builds;
-      with (b) or (f), the conv kernels' registers and spills, from a
-      second compile of their sources with ptxas's report, made in the same
-      pool;
+      with (b) or (f), the conv kernels' registers and spills, with (h) the
+      lattice kernel's, from a second compile of their sources with
+      ptxas's report, made in the same pool;
   (b) conv kernel vs its plain version at every layer shape of the
       full-width StarDist 2D forward (Config2D() defaults) on a 4096^2
       image; per shape and in total: the kernel's time, the cuDNN yardstick
@@ -38,8 +38,13 @@ Phases (each prints one line; any failed check exits non-zero):
   (h) StarDist3D(None, "3D_demo", "models/examples").predict_instances on
       the benchmark's synthetic 3D nuclei field, 64x256x256, on the card:
       stage times, counts, AP@0.1 against the field's ground truth, the
-      conv3d launch count; then a 32x96x96 crop on the card against the
-      same call on the CPU;
+      conv3d launch count and the lattice kernel's (one per exact round);
+      then the lattice kernel alone on that call's exact pairs at S = 10
+      and 12 (H_LATTICE_S): counts exactly the plain twin's, its time (CUDA
+      events), the call's, the plain twin's on the card, and its bound
+      (lattice_bound: the lattice points and those inside the first
+      polyhedron, F face tests each, at the f32 peak); then a 32x96x96 crop
+      on the card against the same call on the CPU;
   (i) raster kernel vs its plain version on three seeded polygon fields (the
       4096^2 bench-shaped field, ~7k polygons; a dense 2048^2 field of 60k
       overlapping ones; an adversarial 2048^2 field, adversarial_polygons):
@@ -277,6 +282,7 @@ N_PAIRS = 100_000    # (c)
 FWD3D_SHAPE = (64, 512, 512)   # full-width 3D forward input, (f) and (g)
 E2E3D_SHAPE = (64, 256, 256)   # 3D predict_instances field on the card, (h)
 CMP3D_SHAPE = (32, 96, 96)     # card vs CPU comparison crop, (h)
+H_LATTICE_S = (10, 12)         # (h): the lattice kernel timed on the call's exact pairs
 RASTER_FIELDS = ((4096, 7000), (2048, 60_000))  # (i): (image side, polygons)
 RASTER_ADVERSARIAL = (2048, 200)  # (i): image side, polygons of each adversarial kind
 RASTER_MANY = (2048, 66_000)      # (i): more polygons than the 32-bit packing holds
@@ -626,6 +632,137 @@ def adversarial_pairs(R, dev, seed=0, extents=(8, 16)):
     return tuple(t.to(dev) for t in (d_r, p, d_c, p.clone(), plo, ext))
 
 
+LATTICE_LO, LATTICE_HI = np.float32(-1e-7), np.float32(1 + 1e-7)  # the inside test's bounds
+
+
+def lattice_bound_cases(F, dev):
+    """Polyhedra of F faces whose one lattice point, u = (1, 1, 1) about the
+    centre 0, has barycentric coordinates (b0, b1, b2) in one face exactly
+    at, and one f32 ulp either side of, the inside test's bounds:
+    f32(-1e-7) for each coordinate, f32(1 + 1e-7) for their sum (that
+    face's inverse is diag(b), so b is exact). The passing face is the
+    first, a middle or the last; every other face is either degenerate
+    (valid False) with an inverse that would pass, or valid and failing.
+    Each is paired with one always inside, one never inside (every face
+    degenerate) and itself, both ways, and once more with an empty lattice.
+    Returns (points, inv, valid, i, j, plo, phi, stride, expected (P, 2)
+    int32: the points inside i, and inside both)."""
+    def ulp(x, d):
+        return x if d == 0 else np.nextafter(x, np.float32(d * np.inf))
+    cases = []                                          # (b, inside)
+    for d in (-1, 0, 1):
+        for r in range(3):
+            b = [np.float32(0.25)] * 3
+            b[r] = ulp(LATTICE_LO, d)
+            cases.append((b, d >= 0))
+        cases.append(([ulp(LATTICE_HI, d), np.float32(0), np.float32(0)], d <= 0))
+    n = len(cases)
+    inv = np.zeros((n + 2, F, 3, 3), np.float32)
+    valid = np.zeros((n + 2, F), bool)
+    inv[:, :, [0, 1, 2], [0, 1, 2]] = np.where(np.arange(F) % 2, -1.0, 0.0)[None, :, None]
+    valid[:, 1::2] = True                               # odd faces valid and failing
+    for c, (b, _) in enumerate(cases):
+        f = (0, F // 2, F - 1)[c % 3]
+        inv[c, f] = np.diag(b)
+        valid[c, f] = True
+    always, never = n, n + 1
+    inv[always, F - 1], valid[always, F - 1] = 0.0, True   # b = 0 passes
+    valid[never] = False
+    inside = [ok for _, ok in cases] + [True, False]
+    pairs = []                                          # (i, j, expected)
+    for c in range(n):
+        for a, b in ((c, always), (always, c), (c, c), (c, never), (never, c)):
+            pairs.append((a, b, (inside[a], inside[a] and inside[b])))
+    empty = [(c, always, (0, 0)) for c in range(n)]     # phi < plo on the first axis
+    i, j = (np.array([p[k] for p in pairs + empty], np.int64) for k in (0, 1))
+    expected = np.array([p[2] for p in pairs + empty], np.int32)
+    P = len(i)
+    plo = np.ones((P, 3), np.float32)
+    phi = np.ones((P, 3), np.float32)
+    stride = np.ones((P, 3), np.float32)
+    phi[len(pairs):, 0] = 0.0
+    arrays = (np.zeros((n + 2, 3), np.float32), inv, valid, i, j, plo, phi, stride, expected)
+    return tuple(torch.from_numpy(a).to(dev) for a in arrays)
+
+
+def octahedron_rays():
+    """The six axis rays and eight faces of an octahedron: with integer
+    distances and centres its faces pass through lattice points, whose
+    barycentric sums then round to either side of 1."""
+    dirs = np.concatenate([np.eye(3), -np.eye(3)]).astype(np.float32)
+    faces = np.array([(a, b, c) for a in (0, 3) for b in (1, 4) for c in (2, 5)], np.int64)
+    return torch.from_numpy(dirs), torch.from_numpy(faces)
+
+
+def lattice_pair_set(ray_dirs, faces, n, S, dev, seed, integer=False):
+    """n seeded star polyhedra of a ray set around a few centres, a tenth of
+    them with a ray of length 0 (degenerate faces), and every pair of them
+    whose bboxes meet, with its lattice at S; ``integer``: integer
+    distances and centres (on the octahedron, points on the faces).
+    Returns (points, inv, valid, i, j, plo, phi, stride)."""
+    from stardist_torch.ops.lattice_overlap import lattice_grid
+    from stardist_torch.ops.polyhedron import polyhedron_bboxes, polyhedron_face_inverses
+    rng = np.random.RandomState(seed)
+    R = len(ray_dirs)
+    centres = rng.uniform(0, 24, (max(1, n // 8), 3))
+    points = centres[rng.randint(len(centres), size=n)] + rng.normal(0, 3, (n, 3))
+    dist = rng.uniform(2, 9, (n, R))
+    if integer:
+        points, dist = np.round(points), np.round(dist)
+    dist[rng.rand(n) < 0.1, rng.randint(R)] = 0.0
+    points = torch.from_numpy(points.astype(np.float32)).to(dev)
+    dist = torch.from_numpy(dist.astype(np.float32)).to(dev)
+    ray_dirs, faces = ray_dirs.to(dev), faces.to(dev)
+    inv, valid = polyhedron_face_inverses(dist, ray_dirs, faces)
+    lo, hi = polyhedron_bboxes(dist, points, ray_dirs)
+    i, j = torch.triu_indices(n, n, 1, device=dev)
+    meet = ((torch.minimum(hi[i], hi[j]) - torch.maximum(lo[i], lo[j])) >= 0).all(dim=1)
+    i, j = i[meet], j[meet]
+    return (points, inv, valid, i, j, *lattice_grid(lo, hi, i, j, S))
+
+
+def lattice_bound(n_points, n_inside_first, F, P):
+    """Bound of the lattice kernel's function: each lattice point tested
+    against its pair's first polyhedron and each point inside it against
+    the second, at F face tests of 17 f32 operations (9 products and 8
+    sums; the comparisons not counted) plus the point's offset (3); per
+    pair the two face sets (F x (9 + 1 valid byte)), the lattice's 9
+    values and the two indices read once, the two counts written once."""
+    ops = (n_points + n_inside_first) * (F * 17 + 3)
+    return bound(ops, P * (2 * F * 37 + 9 * 4 + 16 + 8), PEAK_F32)
+
+
+def exact_pairs(model, img, samples):
+    """The exact pairs of one ``predict_instances`` call at the lattice
+    ``samples``, all its rounds in one list, as ``lattice_counts`` was
+    given them: ((points, inv, valid, i, j, plo, phi, stride), rounds)."""
+    from stardist_torch.ops import nms as nms_ops
+    calls, real = [], nms_ops.lattice_counts
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+    nms_ops.lattice_counts = record
+    try:
+        model.predict_instances(img, nms_kwargs={"samples": samples})
+    finally:
+        nms_ops.lattice_counts = real
+    check(len(calls) > 0 and all(c[0] is calls[0][0] for c in calls),
+          "exact_pairs: not one NMS call")
+    return (*calls[0][:3], *(torch.cat([c[k] for c in calls]) for k in range(3, 8))), len(calls)
+
+
+def lattice_kernel_ms(lk, args, S):
+    """The lattice kernel alone on ``args`` (one launch a run; the output
+    made once)."""
+    points, inv, valid, i, j = args[:5]
+    P, F = i.numel(), valid.shape[1]
+    out = torch.empty(P, 2, dtype=torch.int32, device=points.device)
+    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (*args, out)]
+    return cuda_ms(lambda: lk.KERNEL.launch(*ptrs, P, F, S, lk.stream_ptr(points.device)),
+                   warmup=2, iters=10)
+
+
 def inside_test_ops(R):
     """f32 operations of one inside test of a point against a star polygon
     of R rays, as the function needs it: the wedge found by ceil(log2 R)
@@ -867,12 +1004,12 @@ def phase_g(net3, dev):
           f"{e_prob:.2e}, dist max rel diff {e_dist:.2e}", flush=True)
 
 
-def phase_h(dev, conv, matching, StarDist3D):
+def phase_h(dev, conv, lk, matching, StarDist3D):
     model = StarDist3D(None, "3D_demo", "models/examples", device=dev)
     img, lbl = synthetic_nuclei_3d(E2E3D_SHAPE, seed=3)
     model.predict_instances(img)                       # warm-up: allocator, caches
     torch.cuda.synchronize()
-    conv.KERNEL3D.launches = 0
+    conv.KERNEL3D.launches = lk.KERNEL.launches = 0
     t0 = time.perf_counter()
     labels, details = model.predict_instances(img)
     torch.cuda.synchronize()
@@ -880,6 +1017,9 @@ def phase_h(dev, conv, matching, StarDist3D):
     launches = conv.KERNEL3D.launches
     n_conv = len(model.net.conv_blocks())
     check(launches == n_conv, f"conv3d launches {launches} != {n_conv} convs x 1 call")
+    lattice_launches = lk.KERNEL.launches
+    check(lattice_launches == details["nms_counters"]["n_rounds"] > 0,
+          f"lattice launches {lattice_launches} != {details['nms_counters']['n_rounds']} rounds")
     check(labels.shape == img.shape and labels.max() > 0, "empty label volume")
     ap = matching(lbl, labels, thresh=0.1).accuracy
     check(ap >= 0.8, f"AP@0.1 {ap} < 0.8")
@@ -893,7 +1033,34 @@ def phase_h(dev, conv, matching, StarDist3D):
           f"{c['n_candidates']} candidates, {c['n_pairs']} bbox pairs, {c['n_eval_pairs']} "
           f"exact pairs in {c['n_rounds']} rounds, {c['n_survivors']} survivors, "
           f"{int(labels.max())} objects ({int(lbl.max())} true), AP@0.1 {ap:.4f}, AP@0.5 "
-          f"{ap5:.4f}; conv3d launches {launches}", flush=True)
+          f"{ap5:.4f}; {c['n_lattice_points']} lattice points, {c['n_lattice_inside_first']} "
+          f"inside the first polyhedron; conv3d launches {launches}, lattice launches "
+          f"{lattice_launches}", flush=True)
+
+    # the lattice kernel alone on the call's exact pairs, against its bound and its plain twin
+    rows = {}
+    for S in H_LATTICE_S:
+        args, rounds = exact_pairs(model, img, S)
+        got = lk.lattice_counts(*args, S)
+        ref = lk.lattice_counts_plain(*args, S)
+        torch.cuda.synchronize()
+        n_diff = int((got != ref).any(dim=1).sum().item())
+        check(n_diff == 0, f"(h) lattice kernel differs from plain on {n_diff} pairs at S={S}")
+        P, F = len(args[3]), args[2].shape[1]
+        n_points = int(lk.lattice_points(*args[5:], S).sum().item())
+        n_first = int(ref[:, 0].sum().item())
+        b_ms, b_by = lattice_bound(n_points, n_first, F, P)
+        rows[S] = dict(ms=lattice_kernel_ms(lk, args, S), bound_ms=b_ms, bound_by=b_by,
+                       call_ms=cuda_ms(lambda: lk.lattice_counts(*args, S), warmup=2, iters=10),
+                       plain_ms=cuda_ms(lambda: lk.lattice_counts_plain(*args, S), iters=1),
+                       err=0.0, pairs=P, points=n_points, first=n_first, rounds=rounds)
+    print("(h) lattice kernel on the call's exact pairs (F = "
+          f"{F}), exactly the plain twin's counts: " + "; ".join(
+              f"S={S}: {r['pairs']} pairs in {r['rounds']} rounds, {r['points']} lattice points, "
+              f"{r['first']} inside the first; kernel {r['ms']:.4f} ms (call {r['call_ms']:.4f} "
+              f"ms) / plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), kernel at {100 * r['bound_ms'] / r['ms']:.1f}% of bound"
+              for S, r in rows.items()), flush=True)
 
     crop = img[:CMP3D_SHAPE[0], :CMP3D_SHAPE[1], :CMP3D_SHAPE[2]]
     lab_gpu, _ = model.predict_instances(crop)
@@ -908,7 +1075,7 @@ def phase_h(dev, conv, matching, StarDist3D):
           f"objects {n_gpu} / {n_cpu}")
     print(f"(h) {'x'.join(map(str, CMP3D_SHAPE))} crop card vs CPU plain path: matching "
           f"accuracy {acc:.4f}, objects {n_gpu} / {n_cpu}, CPU call {t_cpu:.1f} s", flush=True)
-    return launches
+    return launches, lattice_launches, rows
 
 
 def polygon_field(n, size, seed, n_rays=32, r_range=(7, 14)):
@@ -3430,7 +3597,8 @@ def main(argv=None):
     from stardist_torch.matching import matching
     from stardist_torch.models import Config2D, Config3D, StarDist2D, StarDist3D
     from stardist_torch.models.unet import StarDistNet
-    from stardist_torch.ops import conv, cuda_build, pair_overlap as po, raster_tiles as rt
+    from stardist_torch.ops import conv, cuda_build, lattice_overlap as lk
+    from stardist_torch.ops import pair_overlap as po, raster_tiles as rt
     from stardist_torch.ops.rasterize import rasterize_polygons_splat
 
     torch.backends.cudnn.allow_tf32 = False        # plain convs in full f32
@@ -3442,18 +3610,21 @@ def main(argv=None):
     print(smi, flush=True)
     t0 = time.perf_counter()
     kernels = {"conv": conv.KERNEL, "pair": po.KERNEL, "raster": rt.KERNEL}
-    jobs = [k.build for k in (conv.KERNEL, po.KERNEL, conv.KERNEL3D, rt.KERNEL)]
-    if phases & set("bf"):
-        jobs += [lambda k=k: ptxas_report(k, cuda_build) for k in (conv.KERNEL, conv.KERNEL3D)]
+    builds = {"conv": conv.KERNEL, "pair": po.KERNEL, "conv3d": conv.KERNEL3D,
+              "raster": rt.KERNEL, "lattice": lk.KERNEL}
+    reports = {name: builds[name] for name in ("conv", "conv3d") if phases & set("bf")}
+    if "h" in phases:
+        reports["lattice"] = lk.KERNEL
+    jobs = [k.build for k in builds.values()]
+    jobs += [lambda k=k: ptxas_report(k, cuda_build) for k in reports.values()]
     with ThreadPoolExecutor(len(jobs)) as pool:        # one nvcc per compile, all at once
         done = list(pool.map(lambda job: job(), jobs))
-    ptxas = (f"; ptxas, compiled again in this run: conv {done[4]}; conv3d {done[5]}"
-             if len(done) > 4 else "")
+    ptxas = "".join(f"; {name} {r}" for name, r in zip(reports, done[len(builds):]))
+    ptxas = f"; ptxas, compiled again in this run{ptxas}" if ptxas else ""
     print(f"(a) {torch.cuda.get_device_name(0)} [{smi}]; torch {torch.__version__} "
-          f"CUDA {torch.version.cuda}; kernels built in {time.perf_counter() - t0:.1f} s "
-          f"(conv {conv.KERNEL.build_seconds:.1f} s, pair {po.KERNEL.build_seconds:.1f} s, "
-          f"conv3d {conv.KERNEL3D.build_seconds:.1f} s, raster "
-          f"{rt.KERNEL.build_seconds:.1f} s){ptxas}", flush=True)
+          f"CUDA {torch.version.cuda}; kernels built in {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{name} {k.build_seconds:.1f} s" for name, k in builds.items())
+          + f"){ptxas}", flush=True)
 
     if phases & set("bcde"):
         net = StarDistNet(Config2D(grid=(2, 2)), dtype=torch.bfloat16)
@@ -3477,7 +3648,7 @@ def main(argv=None):
         del net3
         torch.cuda.empty_cache()
     if "h" in phases:
-        launches3d = phase_h(dev, conv, matching, StarDist3D)
+        launches3d, lattice_launches, lattice = phase_h(dev, conv, lk, matching, StarDist3D)
         torch.cuda.empty_cache()
 
     raster = phase_i(dev, rt, rasterize_polygons_splat) if "i" in phases else None
@@ -3558,6 +3729,12 @@ def main(argv=None):
          "ms": raster[0]["ms"], "plain_ms": raster[0]["plain_ms"],
          "bound_ms": raster[0]["bound_ms"], "bound_by": raster[0]["bound_by"],
          "library_ms": None, "kernel_ms": raster[0]["kernel_ms"]},
+        {"name": "lattice_counts_i32", "route": "cuda",
+         "source": "stardist_torch/csrc/lattice_overlap.cu", "replaces": None,
+         "launches": lattice_launches, "launches_script": lk.KERNEL.launches,
+         "max_abs_err": 0.0,
+         **{k: lattice[12][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "call_ms")},
+         "library_ms": None, "ms_by_s": {str(S): r["ms"] for S, r in lattice.items()}},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,8 +9,9 @@ forward -> candidate extraction -> greedy star-polygon / star-polyhedron NMS
 and ``StarDist3D.train`` (targets built on the model's device, float32
 autograd, Adam; weight files the JAX package reads); of the threshold
 search; and of multiclass models (``n_classes``) in all of these. The
-U-Net's 3x3 and 3x3x3 convolutions, the 2D NMS pair-overlap estimator and
-the 2D label raster run as CUDA kernels on CUDA tensors
+U-Net's 3x3 and 3x3x3 convolutions, the 2D NMS pair-overlap estimator, the
+2D label raster and the 3D NMS's exact lattice count run as CUDA kernels on
+CUDA tensors
 (``stardist_torch/csrc``) and as their plain PyTorch versions on CPU
 tensors.
 

@@ -24,9 +24,9 @@ In 3D (:func:`nms_polyhedra`) the steps are the same with the reference's
 exact overlap of ``_overlap_block_3d``, the polyhedra's common voxels
 counted on an integer lattice of at most S points per axis inside the
 bbox intersection (``samples``: 12 by default, as the reference's host
-NMS; its device path runs 10) and weighted by the lattice stride (plain
-torch: the reference runs no Pallas kernel there); no bounds for N <=
-``DENSE_MAX_3D``.
+NMS; its device path runs 10) and weighted by the lattice stride
+(:mod:`.lattice_overlap`: ``csrc/lattice_overlap.cu`` on the GPU, though the
+reference runs no Pallas kernel there); no bounds for N <= ``DENSE_MAX_3D``.
 
 The greedy result is the unique fixpoint of keep[j] = not any(keep[i] and
 sup(i, j), i < j), so any evaluation order gives the same keep flags as the
@@ -44,19 +44,16 @@ import numpy as np
 import torch
 
 from ..core.profiling import span
+from .lattice_overlap import LATTICE_S, lattice_counts, lattice_grid, lattice_points
 from .pair_overlap import pair_frac
 from .polygon import polygon_areas, polygon_bboxes
-from .polyhedron import (points_in_indexed_polyhedra, polyhedron_bboxes,
-                         polyhedron_face_inverses, polyhedron_inner_radius, polyhedron_volumes)
+from .polyhedron import (polyhedron_bboxes, polyhedron_face_inverses, polyhedron_inner_radius,
+                         polyhedron_volumes)
 
 CASCADE_S = 8
 CASCADE_MARGIN = 0.1
 DENSE_MAX = 256
 DENSE_MAX_3D = 32
-LATTICE_S = 12
-# pairs per exact-overlap step at LATTICE_S (bounds the (pairs, S^3, 8) temporaries)
-LATTICE_PAIRS = 64
-LATTICE_PAIRS_CUDA = 2048  # the same on a GPU (fewer, larger launches)
 LATTICE_BUDGET = 1024  # exact pairs per greedy round in 3D (CPU)
 LATTICE_BUDGET_CUDA = 16384  # the same on a GPU, which runs more pairs at once
 ROW_BLOCK = 512        # candidates per block of the 3D greedy
@@ -263,33 +260,18 @@ def nms_polygons(dist, points, thresh=0.5, stats=None, samples=16):
     return keep
 
 
-def _lattice_overlap(points, lo, hi, vol, inv, valid, i, j, thresh, S):
+def _lattice_overlap(points, lo, hi, vol, inv, valid, i, j, thresh, S, totals):
     """Exact-overlap verdicts (bool) for the polyhedron pairs (i, j): the
     common voxels counted on the integer lattice inside the bbox
-    intersection (ceil/floor of its corners, stride max(ceil(n_vox/S), 1)
-    per axis, at most S points per axis), times the stride product, over
-    min(volume) + 1e-10, against ``thresh``.
-
-    Only the lattice points inside the intersection are tested against i,
-    and only those inside i against j (each point's verdict is its own, so
-    this skips work and changes no count)."""
-    plo = torch.ceil(torch.maximum(lo[i], lo[j]))                  # (P, 3)
-    phi = torch.floor(torch.minimum(hi[i], hi[j]))
-    n_vox = torch.clamp_min(phi - plo + 1, 0.0)
-    stride = torch.clamp_min(torch.ceil(n_vox / S), 1.0)
-    ar = torch.arange(S, dtype=torch.float32, device=lo.device)
-    pos = plo[:, :, None] + stride[:, :, None] * ar                # (P, 3, S), integers
-    ok = pos <= phi[:, :, None]
-    P = plo.shape[0]
-    m = (ok[:, 0, :, None, None] & ok[:, 1, None, :, None] & ok[:, 2, None, None, :]).reshape(P, -1)
-    pair, sample = torch.nonzero(m, as_tuple=True)
-    iz, iy, ix = sample // (S * S), (sample // S) % S, sample % S
-    q = torch.stack([pos[pair, 0, iz], pos[pair, 1, iy], pos[pair, 2, ix]], dim=-1)   # (K, 3)
-    sel = points_in_indexed_polyhedra(inv, valid, points, i[pair], q)
-    pair, q = pair[sel], q[sel]
-    sel = points_in_indexed_polyhedra(inv, valid, points, j[pair], q)
-    count = torch.bincount(pair[sel], minlength=P).float()
-    inter = count * (stride[:, 0] * stride[:, 1] * stride[:, 2])
+    intersection (:func:`.lattice_overlap.lattice_counts`; ceil/floor of its
+    corners, stride max(ceil(n_vox / S), 1) per axis, at most S points per
+    axis), times the stride product, over min(volume) + 1e-10, against
+    ``thresh``. Adds the pairs' lattice points and the points tested against
+    j (those inside i) to ``totals`` (2,) int64, on the pairs' device."""
+    plo, phi, stride = lattice_grid(lo, hi, i, j, S)
+    counts = lattice_counts(points, inv, valid, i, j, plo, phi, stride, S)
+    totals += torch.stack([lattice_points(plo, phi, stride, S).sum(), counts[:, 0].sum()])
+    inter = counts[:, 1].float() * (stride[:, 0] * stride[:, 1] * stride[:, 2])
     return inter / (torch.minimum(vol[i], vol[j]) + 1e-10) > thresh
 
 
@@ -300,9 +282,12 @@ def nms_polyhedra(dist, points, ray_dirs, faces, thresh=0.5, stats=None, samples
     by descending score, and the rays' ``ray_dirs`` (R, 3) / ``faces``
     (F, 3), all on one device; ``samples`` (>= 1) the exact test's lattice
     points per axis. Returns keep (N,) bool on that device.
-    ``stats``, if a dict, receives pair counts and ``exact_s``, the seconds
+    ``stats``, if a dict, receives pair counts, ``exact_s``, the seconds
     spent in the exact lattice test (its ``stardist.nms.exact`` spans, each
-    ended by a sync on the card).
+    ended by a sync on the card), ``n_lattice_points``, the lattice points
+    of every exact pair, and ``n_lattice_inside_first``, those of them
+    inside the pair's first polyhedron (so tested against the second),
+    both summed on the device and read with ``n_survivors``.
 
     The reference's blocked order (``_blocked_greedy``): blocks of the
     ``ROW_BLOCK`` lowest-ranked candidates not yet suppressed. Every
@@ -315,7 +300,7 @@ def nms_polyhedra(dist, points, ray_dirs, faces, thresh=0.5, stats=None, samples
     N = dist.shape[0]
     dev = dist.device
     counts = dict(n_candidates=N, n_pairs=0, n_eval_pairs=0, n_rounds=0, n_survivors=N,
-                  exact_s=0.0)
+                  exact_s=0.0, n_lattice_points=0, n_lattice_inside_first=0)
     if N <= 1:
         if stats is not None:
             stats.update(counts)
@@ -334,15 +319,12 @@ def nms_polyhedra(dist, points, ray_dirs, faces, thresh=0.5, stats=None, samples
         inv, valid = polyhedron_face_inverses(dist, ray_dirs, faces)
     on_gpu = dev.type == "cuda"
     budget = LATTICE_BUDGET_CUDA if on_gpu else LATTICE_BUDGET
-    # pairs per step: the temporaries of LATTICE_S's step at any lattice
-    step = max(1, int((LATTICE_PAIRS_CUDA if on_gpu else LATTICE_PAIRS)
-                      * (LATTICE_S / samples) ** 3))
+    totals = torch.zeros(2, dtype=torch.int64, device=dev)
 
     def exact(i, j):
         with span("stardist.nms.exact", counts, "exact_s"):
-            out = torch.cat([
-                _lattice_overlap(points, lo, hi, vol, inv, valid, i[c], j[c], thresh, samples)
-                for c in torch.split(torch.arange(i.numel(), device=dev), step)])
+            out = _lattice_overlap(points, lo, hi, vol, inv, valid, i, j, thresh, samples,
+                                   totals)
             if on_gpu:
                 torch.cuda.synchronize(dev)
         return out
@@ -382,7 +364,8 @@ def nms_polyhedra(dist, points, ray_dirs, faces, thresh=0.5, stats=None, samples
             counts["n_eval_pairs"] += n_eval
             counts["n_rounds"] += n_rounds
             pos = int(rows[-1].item()) + 1
-    counts["n_survivors"] = int((~suppressed).sum().item())
+    counts["n_survivors"], counts["n_lattice_points"], counts["n_lattice_inside_first"] = \
+        torch.cat([(~suppressed).sum()[None], totals]).tolist()
     if stats is not None:
         stats.update(counts)
     return ~suppressed

@@ -12,6 +12,7 @@ import torch
 from stardist_torch.matching import matching
 from stardist_torch.models import StarDist2D, StarDist3D
 from stardist_torch.ops import conv as tconv
+from stardist_torch.ops import lattice_overlap as tlk
 from stardist_torch.ops import pair_overlap as tpo
 from stardist_torch.ops import raster_tiles as trt
 from stardist_torch.ops.rasterize import rasterize_polygons
@@ -616,6 +617,74 @@ def test_3d_nms_at_samples_on_card_equals_cpu(cuda_device, S):
     assert np.array_equal(lab_g, lab_c) and lab_c.max() > 0
     for k in ("points", "prob", "dist"):
         assert np.array_equal(det_g[k], det_c[k])
+
+
+@pytest.mark.parametrize("S", [1, 6, 10, 12, 24])
+def test_lattice_kernel_matches_plain_on_3d_demo_exact_pairs(cuda_device, S):
+    """Every pair that 3D_demo's NMS tests exactly on a seeded volume at
+    lattice S: the kernel's two counts are the plain version's, and the
+    call launched the kernel once per exact round."""
+    from chip_smoke import exact_pairs
+    img, _ = _nuclei3d((32, 96, 96), 12, 3)
+    gm = StarDist3D(None, "3D_demo", "models/examples", device=cuda_device)
+    n0 = tlk.KERNEL.launches
+    args, rounds = exact_pairs(gm, img, S)
+    assert tlk.KERNEL.launches - n0 == rounds > 0 and len(args[3]) > 100
+    got = tlk.lattice_counts(*args, S)
+    ref = tlk.lattice_counts_plain(*args, S)
+    assert torch.equal(got, ref)
+    assert int(ref[:, 0 if S == 1 else 1].sum()) > 0     # S = 1: the box's corner only
+
+
+@pytest.mark.parametrize("S", [1, 6, 10, 12, 24])
+@pytest.mark.parametrize("rays", ["golden32", "golden96", "octahedron"])
+def test_lattice_kernel_matches_plain_on_adversarial_pairs(cuda_device, rays, S):
+    """Seeded pairs with degenerate faces and strides above 1; octahedra
+    whose faces pass through lattice points; and one-point lattices whose
+    barycentric coordinates lie at, and one f32 ulp either side of, the
+    inside test's bounds, beside empty lattices and degenerate faces."""
+    from chip_smoke import lattice_bound_cases, lattice_pair_set, octahedron_rays
+    from stardist_torch.ops.polyhedron import ray_tensors
+    from stardist_torch.rays3d import Rays_GoldenSpiral
+    if rays == "octahedron":
+        dirs, faces = octahedron_rays()
+    else:
+        dirs, faces = ray_tensors(Rays_GoldenSpiral(int(rays[6:])))
+    args = lattice_pair_set(dirs, faces, 100, S, cuda_device, seed=S,
+                            integer=rays == "octahedron")
+    got = tlk.lattice_counts(*args, S)
+    assert torch.equal(got, tlk.lattice_counts_plain(*args, S))
+    assert int(got[:, 0 if S == 1 else 1].sum()) > 0     # S = 1: the box's corner only
+    bounds = lattice_bound_cases(len(faces), cuda_device)
+    got = tlk.lattice_counts(*bounds[:8], S)
+    assert torch.equal(got, bounds[8])
+    assert torch.equal(got, tlk.lattice_counts_plain(*bounds[:8], S))
+
+
+def test_lattice_kernel_makes_no_host_sync(cuda_device):
+    from chip_smoke import lattice_pair_set
+    from stardist_torch.ops.polyhedron import ray_tensors
+    from stardist_torch.rays3d import Rays_GoldenSpiral
+    args = lattice_pair_set(*ray_tensors(Rays_GoldenSpiral(32)), 60, 12, cuda_device, seed=0)
+    tlk.lattice_counts(*args, 12)                                            # builds
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tlk.lattice_counts(*args, 12)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_3d_predict_instances_runs_the_lattice_kernel(cuda_device):
+    """The main 3D path launches the lattice kernel once per exact round,
+    and its lattice counters are filled."""
+    img, _ = _nuclei3d((32, 96, 96), 12, 3)
+    gm = StarDist3D(None, "3D_demo", "models/examples", device=cuda_device)
+    n0 = tlk.KERNEL.launches
+    _, det = gm.predict_instances(img)
+    c = det["nms_counters"]
+    assert tlk.KERNEL.launches - n0 == c["n_rounds"] > 0
+    assert c["n_lattice_points"] > c["n_lattice_inside_first"] > 0
 
 
 @pytest.mark.parametrize("S", [4, 10, 12, 20])
