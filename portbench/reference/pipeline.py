@@ -2,7 +2,8 @@
 that judges the program's output with it.
 
 It reads the model folder (config.json, thresholds.json, weights_best.h5)
-and nothing of the program: the forward of ``unet.py``, the candidates
+and nothing of the program: the forward of ``unet.py`` or, for a model
+with ``backbone: "resnet"``, of ``resnet.py``, the candidates
 above the prob threshold away from a border of 2 grid cells, the greedy
 NMS of ``greedy.py`` with the overlaps of ``star2d.py`` / ``star3d.py``,
 and the label image.
@@ -17,6 +18,7 @@ import torch
 
 from . import labels, star2d, star3d
 from .greedy import greedy
+from .resnet import PlainResNet
 from .unet import PlainStarDist, fp8_round
 from .weights import load_flax_variables
 
@@ -29,16 +31,18 @@ class Reference:
         cfg = json.loads((model_dir / "config.json").read_text())
         thr = json.loads((model_dir / "thresholds.json").read_text())
         params = load_flax_variables(model_dir / "weights_best.h5")["params"]
-        self.net = PlainStarDist(cfg, params, device, precision)
+        net = PlainResNet if cfg.get("backbone") == "resnet" else PlainStarDist
+        self.net = net(cfg, params, device, precision)
         self.nd = int(cfg["n_dim"])
         self.grid = tuple(int(g) for g in cfg["grid"])
         self.prob_thresh, self.nms_thresh = float(thr["prob"]), float(thr["nms"])
         self.device = torch.device(device)
         if self.nd == 3:
             rays = cfg["rays_json"]
-            if rays["name"] != "Rays_GoldenSpiral" or rays["kwargs"].get("anisotropy"):
-                raise ValueError(f"the reference draws isotropic golden-spiral rays, not {rays}")
-            self.dirs, self.faces = star3d.golden_spiral(int(rays["kwargs"]["n"]))
+            if rays["name"] != "Rays_GoldenSpiral":
+                raise ValueError(f"the reference draws golden-spiral rays, not {rays}")
+            self.dirs, self.faces = star3d.golden_spiral(int(rays["kwargs"]["n"]),
+                                                         rays["kwargs"].get("anisotropy"))
 
     def maps(self, img):
         """prob (*sp'), dist (R, *sp') float32 on the device."""

@@ -3,14 +3,15 @@
 A polyhedron is a centre (z, y, x), R distances along unit rays and the
 rays' triangulation: the golden-spiral rays of upstream StarDist
 (stardist/rays3d.py, ``Rays_GoldenSpiral``) with faces from their convex
-hull, worked out here from the ray count alone. It is the union of the
-tetrahedra (centre, A, B, C) over the faces. A point is inside when its
-barycentric coordinates in some face's tetrahedron are all >= -1e-7 and
-sum to <= 1 + 1e-7. The NMS overlap of two polyhedra is their common
-volume over the smaller one's: the common points counted on an integer
-lattice in their boxes' intersection, at most S points per axis with the
-stride max(ceil(n / S), 1), times the stride's volume (upstream StarDist's
-3D NMS). Sphere bounds decide the pairs far from the threshold.
+hull, worked out here from the ray count and the anisotropy alone. It is
+the union of the tetrahedra (centre, A, B, C) over the faces. A point is
+inside when its barycentric coordinates in some face's tetrahedron are
+all >= -1e-7 and sum to <= 1 + 1e-7. The NMS overlap of two polyhedra is
+their common volume over the smaller one's: the common points counted on
+an integer lattice in their boxes' intersection, at most S points per
+axis with the stride max(ceil(n / S), 1), times the stride's volume
+(upstream StarDist's 3D NMS). Sphere bounds decide the pairs far from
+the threshold.
 """
 from __future__ import annotations
 
@@ -24,13 +25,18 @@ SAMPLES = 12
 EPS = 1e-7
 
 
-def golden_spiral(n):
-    """Unit ray directions (n, 3) (z, y, x) and faces (F, 3)."""
+def golden_spiral(n, anisotropy=None):
+    """Unit ray directions (n, 3) (z, y, x) and faces (F, 3). With an
+    ``anisotropy`` (z, y, x), upstream's ``Rays_GoldenSpiral(n,
+    anisotropy)``: the spiral divided by it, the faces of that warped set's
+    hull, then each direction normalized."""
     g = (3.0 - np.sqrt(5.0)) * np.pi
     phi = g * np.arange(n)
     z = np.linspace(-1, 1, n)
     rho = np.sqrt(1.0 - z ** 2)
     verts = np.stack([z, rho * np.sin(phi), rho * np.cos(phi)]).T
+    if anisotropy is not None:
+        verts = verts / np.asarray(anisotropy, np.float64)
     faces = ConvexHull(verts).simplices
     return verts / np.linalg.norm(verts, axis=-1, keepdims=True), faces
 

@@ -101,7 +101,8 @@ def make_inputs(mix, seed):
     """The mix's inputs, item k drawn from (seed, k)."""
     from portbench import frozen
     gen = {"synthetic_nuclei": frozen.synthetic_nuclei,
-           "synthetic_nuclei_3d": frozen.synthetic_nuclei_3d}[mix["generator"]]
+           "synthetic_nuclei_3d": frozen.synthetic_nuclei_3d,
+           "synthetic_nuclei_3d_aniso": frozen.synthetic_nuclei_3d_aniso}[mix["generator"]]
     params = {k: tuple(v) if isinstance(v, list) else v for k, v in mix["params"].items()}
     out = []
     for k in range(int(mix["items"])):

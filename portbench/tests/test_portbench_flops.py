@@ -1,4 +1,5 @@
-"""The FLOP count of 2D_demo and 3D_demo against a count by hand."""
+"""The FLOP count of 2D_demo, 3D_demo and the 3D training notebook's ResNet
+against a count by hand."""
 import json
 
 from portbench import flops, manifest
@@ -33,3 +34,32 @@ def test_3d_demo():
     assert per_vox == 63456
     assert flops.forward_flops(cfg("3D_demo"), (64, 256, 256)) == per_vox * 64 * 256 * 256
     assert len(flops.conv_layers(cfg("3D_demo"), (8, 16, 16))) == 10
+
+
+def notebook(grid):
+    """config.json of upstream's 3D training notebook's model at ``grid``:
+    96 rays, the ResNet of ``Config3D`` (4 blocks of three 3^3 convs, 32
+    base filters, ``net_conv_after_resnet`` 128)."""
+    return {"n_dim": 3, "n_channel_in": 1, "n_rays": 96, "grid": list(grid),
+            "backbone": "resnet", "resnet_n_blocks": 4, "resnet_kernel_size": [3, 3, 3],
+            "resnet_n_filter_base": 32, "resnet_n_conv_per_block": 3,
+            "net_conv_after_resnet": 128}
+
+
+def test_3d_notebook_resnet():
+    # at full size the stems 1->32 (7^3) and 32->32 (3^3); at 1/g the first
+    # block 32->64 strided, 64->64 twice and its 1x1 shortcut 32->64; three
+    # blocks of three 64->64; the feature conv 64->128 and the heads 128->97
+    stem = 2 * 343 * 32 + 2 * 27 * 32 * 32
+    pooled = (2 * 27 * (32 * 64 + 2 * 64 * 64) + 2 * 32 * 64 + 3 * 3 * 2 * 27 * 64 * 64
+              + 2 * 27 * 64 * 128 + 2 * 128 * 97)
+    assert stem + pooled / 4 == 830976
+    assert stem + pooled / 8 == 454112
+    shape = (48, 96, 96)
+    assert flops.forward_flops(notebook((1, 2, 2)), shape) == 830976 * 48 * 96 * 96
+    assert flops.forward_flops(notebook((2, 2, 2)), shape) == 454112 * 48 * 96 * 96
+    layers = flops.conv_layers(notebook((1, 2, 2)), (8, 16, 16))
+    assert [t for _, _, t in layers] == [343, 27] + [27] * 3 + [1] + [27] * 10 + [1]
+    # a strided conv counts its output grid: ceil(n / 2) at an odd extent
+    assert layers[2][0] == (8, 8, 8, 32)
+    assert flops.conv_layers(notebook((1, 2, 2)), (7, 13, 15))[2][0] == (7, 7, 8, 32)
