@@ -25,7 +25,13 @@ stages but no root:
 - ``stardist.prepare``: the host's set-up (axes, zoom, normalizer,
   padding; on each side of the generator's ``"predict"`` step);
 - ``stardist.forward`` (``timings_s["forward"]``; one per tile in tiled
-  calls), with ``stardist.upload``, the input's copy to the card;
+  calls), with ``stardist.upload``, the input's copy to the card, and in
+  a ResNet (``models/unet.py``; its training forward records them too)
+  ``stardist.forward.stem`` (the 7^3 and 3^3 stem convs), one
+  ``stardist.forward.block`` per residual block (its convs, their pads,
+  the shortcut and the add) and ``stardist.forward.head`` (the feature
+  conv and the fused heads): they name the forward's idle gaps and show
+  which launches are cuDNN's; the U-Net's forward has no sub-spans;
 - ``stardist.extract`` (``timings_s["extract"]``), the candidates;
 - ``stardist.nms`` (``timings_s["nms"]``) with ``stardist.nms.sort``,
   ``.geometry`` (areas or volumes, boxes), ``.pairs`` (the pairs whose
@@ -37,7 +43,13 @@ stages but no root:
 - ``stardist.raster`` (``timings_s["raster"]``) with
   ``stardist.raster.draw``, ``.fetch`` (the labels to the host),
   ``.astype`` (2D's int32 copy) and ``.details`` (the survivors to the
-  host).
+  host); in 3D (``ops/rasterize.py::rasterize_polyhedra``) per chunk of
+  polyhedra, inside ``.draw``, ``stardist.raster.inside`` (the face
+  geometry, the inside test, the in-image mask and the masked selections,
+  whose nonzero is the chunk's sync: its host time holds the device time
+  of the chunk's inside test and whatever of the previous chunk's scatter
+  is still queued) and ``stardist.raster.scatter`` (the scatter-max and
+  the count's scatter-add).
 
 A host sync has no span of its own: the profiler records the CUDA
 runtime's ``cudaStreamSynchronize`` (and device and event syncs), and the

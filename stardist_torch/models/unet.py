@@ -49,6 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.profiling import span
 from ..ops.conv import (ACTS, conv3x3_hwc, conv3x3_hwc_plain, conv3x3x3_dhwc,
                         conv3x3x3_dhwc_plain)
 
@@ -477,11 +478,14 @@ class StarDistNet(nn.Module):
         return heads + ([self.head_prob_class] if self.n_classes is not None else [])
 
     def _resnet(self, h):
-        """The ResNet's backbone output of (B, C, *sp) in h's type."""
-        for conv in self.stem:
-            h = conv(h)
+        """The ResNet's backbone output of (B, C, *sp) in h's type, the stem
+        and each block in a span of its own (in both routes)."""
+        with span("stardist.forward.stem"):
+            for conv in self.stem:
+                h = conv(h)
         for blk in self.blocks:
-            h = blk(h)
+            with span("stardist.forward.block"):
+                h = blk(h)
         return h
 
     def _walk(self, h, conv, pool, up, cat):
@@ -531,23 +535,30 @@ class StarDistNet(nn.Module):
                 def conv(mod, h):
                     return mod(h.movedim(-1, 0)[None])[0].movedim(0, -1)
                 base = conv(self._resnet, x.to(self.dtype))
-            else:
-                def conv(blk, h):
-                    return blk(h, plain)
-                base = self._walk(x.to(self.dtype), conv, max_pool, upsample,
-                                  lambda a, b: torch.cat([a, b], dim=-1))
-            feat, feat_c = self._features(base, conv)
-            # fused 1+R head as one f32 channel contraction; the weights are
-            # rounded to the activation type first, as the reference does
-            sp = feat.shape[:-1]
-            y = _head(feat, torch.cat([self.head_prob.weight, self.head_dist.weight], dim=1),
-                      torch.cat([self.head_prob.bias, self.head_dist.bias]))
-            prob = torch.sigmoid(y[0]).view(sp)
-            dist = y[1:].view(self.n_rays, *sp)
-            if self.n_classes is None:
-                return prob, dist
-            pc = _head(feat_c, self.head_prob_class.weight, self.head_prob_class.bias)
-            prob_class = torch.softmax(pc, dim=0).view(self.n_classes + 1, *sp)
+                with span("stardist.forward.head"):
+                    return self._outputs(base, conv)
+
+            def conv(blk, h):
+                return blk(h, plain)
+            base = self._walk(x.to(self.dtype), conv, max_pool, upsample,
+                              lambda a, b: torch.cat([a, b], dim=-1))
+            return self._outputs(base, conv)
+
+    def _outputs(self, base, conv):
+        """:meth:`forward`'s outputs from the backbone's channels-last output
+        ``base``: the feature convs (``conv(module, h)``) and the heads."""
+        feat, feat_c = self._features(base, conv)
+        # fused 1+R head as one f32 channel contraction; the weights are
+        # rounded to the activation type first, as the reference does
+        sp = feat.shape[:-1]
+        y = _head(feat, torch.cat([self.head_prob.weight, self.head_dist.weight], dim=1),
+                  torch.cat([self.head_prob.bias, self.head_dist.bias]))
+        prob = torch.sigmoid(y[0]).view(sp)
+        dist = y[1:].view(self.n_rays, *sp)
+        if self.n_classes is None:
+            return prob, dist
+        pc = _head(feat_c, self.head_prob_class.weight, self.head_prob_class.bias)
+        prob_class = torch.softmax(pc, dim=0).view(self.n_classes + 1, *sp)
         return prob, dist, prob_class
 
     def train_forward(self, x, generator=None, rows=None):

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.profiling import span
 from .polygon import points_in_polygons
 from .polyhedron import _cross, points_in_polyhedra, polyhedron_face_inverses
 from .raster_tiles import inv_scale, rasterize_polygons_tiles_cuda, tile_window, unpack_labels
@@ -160,31 +161,37 @@ def rasterize_polyhedra(dist, points, ray_dirs, faces, shape, order_values, labe
     ar = torch.arange(window, dtype=torch.int64, device=dev)
     chunk = CHUNK_3D_CUDA if dev.type == "cuda" else CHUNK_3D
     for i0 in range(0, N, chunk):
-        d = dist[i0:i0 + chunk]
-        p = points[i0:i0 + chunk]
-        n = d.shape[0]
-        start = torch.round(p).to(torch.int64) - window // 2
-        zz, yy, xx = (start[:, k:k + 1] + ar[None] for k in range(3))   # (n, Wn)
-        q = torch.stack(torch.broadcast_tensors(
-            zz[:, :, None, None].float(), yy[:, None, :, None].float(),
-            xx[:, None, None, :].float()), dim=-1).reshape(n, -1, 3)
-        if mode == "bbox":
-            inside = _inside_bbox(d, p, q, ray_dirs)
-        elif mode == "kernel":
-            inside = _inside_kernel(d, p, q, ray_dirs, faces)
-        else:
-            inv, valid = polyhedron_face_inverses(d, ray_dirs, faces)
-            inside = points_in_polyhedra(inv, valid, p, q)
-        inside = inside & (order_values[i0:i0 + n] > 0)[:, None]
-        in_img = (((zz >= 0) & (zz < D))[:, :, None, None]
-                  & ((yy >= 0) & (yy < H))[:, None, :, None]
-                  & ((xx >= 0) & (xx < W))[:, None, None, :]).reshape(n, -1)
-        inside = inside & in_img
-        flat = ((zz[:, :, None, None] * H + yy[:, None, :, None]) * W
-                + xx[:, None, None, :]).reshape(n, -1)[inside]
-        vals = packed[i0:i0 + n, None].expand(inside.shape)[inside]
-        img.scatter_reduce_(0, flat, vals, reduce="amax")
-        if cnt is not None:
-            cnt.scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+        # the chunk syncs in the masked selections at the end (their
+        # nonzero), so this span's host time holds the device time of the
+        # chunk's inside test at F faces and whatever of the previous
+        # chunk's scatter is still queued
+        with span("stardist.raster.inside"):
+            d = dist[i0:i0 + chunk]
+            p = points[i0:i0 + chunk]
+            n = d.shape[0]
+            start = torch.round(p).to(torch.int64) - window // 2
+            zz, yy, xx = (start[:, k:k + 1] + ar[None] for k in range(3))   # (n, Wn)
+            q = torch.stack(torch.broadcast_tensors(
+                zz[:, :, None, None].float(), yy[:, None, :, None].float(),
+                xx[:, None, None, :].float()), dim=-1).reshape(n, -1, 3)
+            if mode == "bbox":
+                inside = _inside_bbox(d, p, q, ray_dirs)
+            elif mode == "kernel":
+                inside = _inside_kernel(d, p, q, ray_dirs, faces)
+            else:
+                inv, valid = polyhedron_face_inverses(d, ray_dirs, faces)
+                inside = points_in_polyhedra(inv, valid, p, q)
+            inside = inside & (order_values[i0:i0 + n] > 0)[:, None]
+            in_img = (((zz >= 0) & (zz < D))[:, :, None, None]
+                      & ((yy >= 0) & (yy < H))[:, None, :, None]
+                      & ((xx >= 0) & (xx < W))[:, None, None, :]).reshape(n, -1)
+            inside = inside & in_img
+            flat = ((zz[:, :, None, None] * H + yy[:, None, :, None]) * W
+                    + xx[:, None, None, :]).reshape(n, -1)[inside]
+            vals = packed[i0:i0 + n, None].expand(inside.shape)[inside]
+        with span("stardist.raster.scatter"):
+            img.scatter_reduce_(0, flat, vals, reduce="amax")
+            if cnt is not None:
+                cnt.scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
     img = (img & 0xFFFFFFFF).to(torch.int32).view(D, H, W)
     return img, None if cnt is None else cnt.view(D, H, W)

@@ -7,14 +7,18 @@ a generator dropped mid-way leaves none open and a caller's time at a
 yield counts in no stage; ``trace(logdir)`` writes the spans' names."""
 import gc
 import json
+import math
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from stardist_torch.core import profiling
 from stardist_torch.core.profiling import span, trace
-from stardist_torch.models import StarDist2D, StarDist3D
+from stardist_torch.models import Config3D, StarDist2D, StarDist3D
+from stardist_torch.ops.rasterize import CHUNK_3D
+from stardist_torch.rays3d import Rays_GoldenSpiral
 from tests.utils import synthetic_nuclei_2d, synthetic_nuclei_3d
 
 torch.set_num_threads(2)
@@ -32,7 +36,12 @@ PARENT = {"stardist.upload": "stardist.forward", "stardist.nms.round": "stardist
           "stardist.nms.pairs": "stardist.nms", "stardist.nms.bounds": "stardist.nms",
           "stardist.raster.draw": "stardist.raster", "stardist.raster.fetch": "stardist.raster",
           "stardist.raster.astype": "stardist.raster",
-          "stardist.raster.details": "stardist.raster"}
+          "stardist.raster.details": "stardist.raster",
+          "stardist.forward.stem": "stardist.forward",
+          "stardist.forward.block": "stardist.forward",
+          "stardist.forward.head": "stardist.forward",
+          "stardist.raster.inside": "stardist.raster.draw",
+          "stardist.raster.scatter": "stardist.raster.draw"}
 
 
 @pytest.fixture(scope="module")
@@ -41,6 +50,24 @@ def models():
                    StarDist2D(None, "2D_demo", "models/examples", device="cpu")),
             "3d": (synthetic_nuclei_3d((16, 40, 40), n=8, seed=0)[0],
                    StarDist3D(None, "3D_demo", "models/examples", device="cpu"))}
+
+
+@pytest.fixture(scope="module")
+def resnet():
+    """upstream's 3D notebook model (a ResNet with 96 anisotropic rays) with
+    the port's seeded weights, its dist head shifted so that every ray is
+    positive, on a small volume, and a prob threshold that leaves a few
+    dozen candidates, so that the raster draws more than one chunk."""
+    conf = Config3D(backbone="resnet", rays=Rays_GoldenSpiral(96, (2, 1, 1)), grid=(1, 2, 2),
+                    anisotropy=(2, 1, 1))
+    m = StarDist3D(conf, basedir=None, device="cpu")
+    with torch.no_grad():
+        m.net.head_dist.weight.mul_(0.25)
+        m.net.head_dist.bias.fill_(4.0)
+    vol = synthetic_nuclei_3d((12, 40, 40), n=6, seed=2)[0]
+    prob, _ = m.net.forward(torch.from_numpy(vol)[..., None])
+    thr = float(torch.quantile(prob[2:-2, 2:-2, 2:-2].flatten(), 0.95))
+    return vol, m, dict(prob_thresh=thr, nms_thresh=0.3)
 
 
 def traced(fn):
@@ -137,6 +164,46 @@ def test_3d_call_records_blocks_and_the_exact_lattice_test(models):
                  "stardist.raster.details"):
         assert count(spans, name) == 1, name
     assert count(spans, "stardist.raster.astype") == 0
+
+
+def test_3d_resnet_call_records_its_convs_and_raster_chunks(resnet):
+    """A ResNet's forward records its stem, one span per residual block and
+    its head inside ``stardist.forward``; the 3D raster one inside test and
+    one scatter per chunk inside ``stardist.raster.draw``; the labels are
+    those of a call without a profiler."""
+    vol, m, kw = resnet
+    labels0, det0 = m.predict_instances(vol, **kw)
+    (labels, det), spans = traced(lambda: m.predict_instances(vol, **kw))
+    check_nesting(spans)
+    assert count(spans, "stardist.forward") == 1
+    assert count(spans, "stardist.forward.stem") == count(spans, "stardist.forward.head") == 1
+    assert count(spans, "stardist.forward.block") == len(m.net.blocks) == 4
+    n = len(det["prob"])
+    chunks = math.ceil(n / CHUNK_3D)
+    assert chunks >= 2, n
+    assert count(spans, "stardist.raster.inside") == count(spans, "stardist.raster.scatter") \
+        == chunks
+    # each chunk's inside test comes before its scatter
+    chunk_spans = [s for s in spans if s[0] in ("stardist.raster.inside",
+                                                "stardist.raster.scatter")]
+    assert [s[0] for s in chunk_spans] == ["stardist.raster.inside",
+                                           "stardist.raster.scatter"] * chunks
+    assert np.array_equal(labels, labels0) and np.array_equal(det["points"], det0["points"])
+    assert set(det["timings_s"]) == {"forward", "extract", "nms", "raster"}
+
+
+def test_3d_resnet_without_profiler_enters_no_record_function(resnet, monkeypatch):
+    vol, m, kw = resnet
+    rec = _Counting()
+    monkeypatch.setattr(profiling, "record_function", rec)
+    m.predict_instances(vol, **kw)
+    assert rec.entered == 0
+    monkeypatch.setattr(profiling, "_recording", lambda: True)
+    m.predict_instances(vol, **kw)
+    assert rec.open == []
+    for name in ("stardist.forward.stem", "stardist.forward.block", "stardist.forward.head",
+                 "stardist.raster.inside", "stardist.raster.scatter"):
+        assert name in rec.names, name
 
 
 class _Counting:
