@@ -250,14 +250,27 @@ Phases (each prints one line; any failed check exits non-zero):
       differ from S = 12 and the walls; _predict_instances_generator on
       (k)'s 4096^2 field with n_tiles=(2, 2): "predict", 4 x "tile", "nms"
       and predict_instances' result; the host syncs of one device-path call
-      equal those of its generator run by hand and (j)'s count.
+      equal those of its generator run by hand and (j)'s count;
+  (y) the 3D raster kernel (csrc/raster_polyhedra.cu) on the survivors of
+      one predict_instances call (raster3d_args): 3D_demo on (h)'s
+      64x256x256 field, and the benchmark's notebook model
+      (portbench/configs/3D_notebook) on a seeded 64x512x512 anisotropic
+      stack of the benchmark's generator (portbench/frozen.py): labels and
+      counts exactly the plain twin's on the CPU (3D_demo in the "full",
+      "kernel" and "bbox" modes, the stack in "full"), the call's one
+      launch, the kernel + memset and the call by CUDA events, the twin's
+      host time, and the bound (raster3d_bound: each drawn polyhedron's
+      clipped cube, F face tests a voxel, at the f32 peak); then seeded
+      96-ray polyhedra (F = 188; polyhedra_field) exactly the twin's in
+      every mode, with and without the count.
 The line before the last is the kernels' JSON record (the launches of
-(e), (h), (p), (q), (r), (s), (t), (u), (v), (w) and (x)); the last line is
+(e), (h), (p), (q), (r), (s), (t), (u), (v), (w), (x) and (y)); the last line is
 {"ok": true, "device": {...}}. With --phases, only (a) and the named phases
 run (e.g. --phases k to time the tiled call alone), and neither line is
 printed.
 
-Imports torch, numpy, scipy and stardist_torch only (never JAX).
+Imports torch, numpy, scipy and stardist_torch only (never JAX), and in (y)
+the benchmark's stack generator from portbench/frozen.py.
 """
 import argparse
 import ctypes
@@ -327,7 +340,11 @@ X_S = (3, 5, 10, 12, 24, 32)     # (x): the pair kernel's grids beside the casca
 X_R = (3, 32, 128)               # (x): rays of the exact checks
 X_SAMPLES = (10, 12, 16)         # (x): the 2D NMS's fine grid through nms_kwargs
 X_SCHEDULING = dict(dense_max=8, row_block=3, col_block=5, device_nms=True, dist_max=3.0)  # (x)
-ALL_PHASES = "bcdefghijklmnopqrstuvwx"  # (a) runs always
+Y_STACK = ((64, 512, 512), 11)  # (y): the notebook stack's shape and seed
+# (y): the stack's generator parameters, the benchmark's stack_64x512x512 mix
+Y_STACK_PARAMS = dict(r_range=(4, 7), density=2.5e-4, anisotropy=(2, 1, 1))
+Y_FIELD = (120, (40, 72, 64))    # (y): seeded polyhedra of 96 rays, volume
+ALL_PHASES = "bcdefghijklmnopqrstuvwxy"  # (a) runs always
 # one H100 SXM (NVIDIA's data sheet, dense, at the 700 W limit): bf16 tensor
 # cores, f32 outside them, HBM3
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -3585,6 +3602,177 @@ def phase_x(dev, kernels, conv, po, matching, StarDist2D, StarDist3D, j_syncs=No
     return rows, counts
 
 
+def raster3d_args(model, img):
+    """The arguments of the one ``rasterize_polyhedra`` call of a 3D
+    ``predict_instances`` on ``img``: (dist, points, ray_dirs, faces, shape,
+    order_values, labels), as ``polyhedron_to_label`` gave them."""
+    from stardist_torch.geometry import geom3d
+    calls, real = [], geom3d.rasterize_polyhedra
+
+    def record(*args, **kwargs):
+        calls.append((*args, kwargs["labels"]))
+        return real(*args, **kwargs)
+    geom3d.rasterize_polyhedra = record
+    try:
+        model.predict_instances(img)
+    finally:
+        geom3d.rasterize_polyhedra = real
+    check(len(calls) == 1, f"raster3d_args: {len(calls)} raster calls")
+    return calls[0]
+
+
+def raster3d_voxels(dist, points, shape, order_values):
+    """The voxels the 3D raster tests: each drawn polyhedron's cube (the
+    window of the largest dist about its rounded centre) clipped to the
+    volume, summed."""
+    from stardist_torch.ops.raster_tiles import tile_window
+    window = tile_window(float(dist.max()), shape)
+    start = torch.round(points.float().cpu()).long() - window // 2
+    lo = start.clamp(min=0)
+    hi = torch.minimum(start + window, torch.tensor(shape))
+    n = (hi - lo).clamp(min=0).prod(dim=1)
+    return int(n[order_values.cpu() > 0].sum()), window
+
+
+def raster3d_bound(n_voxels, F, N, n_image):
+    """Bound of the 3D raster kernel's function: each voxel of every drawn
+    polyhedron's clipped cube tested against its F faces at 17 f32
+    operations (9 products and 8 sums; the comparisons not counted) plus its
+    offset (3), as lattice_bound counts; each polyhedron's face rows (F x (9
+    + 1 valid byte)), centre and two int64 values read once, the int64 image
+    written once."""
+    return bound(n_voxels * (F * 17 + 3), N * (F * 37 + 12 + 16) + n_image * 8, PEAK_F32)
+
+
+def raster3d_rays(name, dev="cpu"):
+    """(ray_dirs, faces) of a ray set on ``dev``: "golden32", "golden96"
+    (anisotropic (2, 1, 1), 188 faces: the notebook's) or "octahedron"
+    (faces through voxels at integer centres and dists)."""
+    from stardist_torch.ops.polyhedron import ray_tensors
+    from stardist_torch.rays3d import Rays_GoldenSpiral
+    if name == "octahedron":
+        return tuple(t.to(dev) for t in octahedron_rays())
+    if name == "golden96":
+        return ray_tensors(Rays_GoldenSpiral(96, anisotropy=(2, 1, 1)), dev)
+    return ray_tensors(Rays_GoldenSpiral(32), dev)
+
+
+def polyhedra_field(ray_dirs, n, shape, dev, seed, integer=False):
+    """n seeded star polyhedra for the 3D raster: centres in the volume and
+    up to 6 voxels beyond it (cut by its edges), half of them about a few
+    cluster centres (overlapping), dists of 2-9 a polyhedron, each ray within
+    25% of it, a tenth of the rows holding a ray of length 0 (degenerate
+    faces), order values drawn from
+    1..n // 4 with a fifth set to 0 (ties, and polyhedra never drawn), and
+    seeded labels; ``integer``: integer centres and dists (on the
+    octahedron, faces through voxels). Returns (dist, points, order_values,
+    labels) on ``dev``."""
+    rng = np.random.RandomState(seed)
+    R = len(ray_dirs)
+    hi = np.array(shape, np.float64)
+    points = rng.uniform(-6, hi + 6, (n, 3))
+    cl = rng.uniform(0, hi, (4, 3))
+    half = rng.rand(n) < 0.5
+    points[half] = cl[rng.randint(4, size=half.sum())] + rng.normal(0, 3, (half.sum(), 3))
+    dist = rng.uniform(2, 9, (n, 1)) * rng.uniform(0.75, 1.25, (n, R))
+    if integer:
+        points, dist = np.round(points), np.round(dist)
+    dist[rng.rand(n) < 0.1, rng.randint(R)] = 0.0
+    order = rng.randint(1, max(2, n // 4) + 1, n)
+    order[rng.rand(n) < 0.2] = 0
+    labels = rng.permutation(n) + 1
+    arrays = (dist.astype(np.float32), points.astype(np.float32), order.astype(np.int64),
+              labels.astype(np.int64))
+    return tuple(torch.from_numpy(a).to(dev) for a in arrays)
+
+
+def raster3d_vs_twin(tag, dist, points, ray_dirs, faces, shape, order, labels, mode):
+    """The 3D raster kernel's labels, and its count, against the plain
+    twin's on the same tensors moved to the CPU, with and without the count;
+    fails where a voxel differs. Returns the twin's (labels, count, seconds)."""
+    from stardist_torch.ops.raster_polyhedra import rasterize_polyhedra_cuda
+    from stardist_torch.ops.rasterize import rasterize_polyhedra
+    cpu = [None if t is None else t.cpu() for t in (dist, points, ray_dirs, faces, order, labels)]
+    t0 = time.perf_counter()
+    ref, ref_cnt = rasterize_polyhedra(*cpu[:4], shape, cpu[4], labels=cpu[5],
+                                       return_count=True, mode=mode)
+    seconds = time.perf_counter() - t0
+    for count in (False, True):
+        got, cnt = rasterize_polyhedra_cuda(dist, points, ray_dirs, faces, shape, order, labels,
+                                            return_count=count, mode=mode)
+        check(got.is_cuda and got.dtype == torch.int32 and (cnt is not None) == count,
+              f"{tag} {mode}: a {got.dtype} image on {got.device}, count {cnt is not None}")
+        n_diff = int((got.cpu() != ref).sum()) + (int((cnt.cpu() != ref_cnt).sum()) if count
+                                                  else 0)
+        check(n_diff == 0, f"{tag} {mode} labels={labels is not None} count={count}: {n_diff} "
+                           "voxels differ from the plain twin")
+    return ref, ref_cnt, seconds
+
+
+def phase_y(dev, r3, StarDist3D):
+    """The 3D raster kernel against its plain twin on the CPU."""
+    from portbench.frozen import synthetic_nuclei_3d_aniso
+    t_phase = time.perf_counter()
+    stack_shape, stack_seed = Y_STACK
+    cells = (("3D_demo", "models/examples",
+              lambda: synthetic_nuclei_3d(E2E3D_SHAPE, seed=3)[0], ("full", "kernel", "bbox")),
+             ("3D_notebook", "portbench/configs",
+              lambda: synthetic_nuclei_3d_aniso(stack_shape, seed=stack_seed,
+                                                **Y_STACK_PARAMS)[0], ("full",)))
+    rows = {}
+    for name, basedir, make, modes in cells:
+        model = StarDist3D(None, name, basedir, device=dev)
+        img = make()
+        model.predict_instances(img)                   # warm-up: allocator, caches
+        n0 = r3.KERNEL.launches
+        dist, points, ray_dirs, faces, vol, order, labels = raster3d_args(model, img)
+        check(r3.KERNEL.launches - n0 == 1,
+              f"(y) {name}: {r3.KERNEL.launches - n0} raster launches in one call")
+        plain_s = {}
+        for mode in modes:
+            ref, _, plain_s[mode] = raster3d_vs_twin(f"(y) {name}", dist, points, ray_dirs,
+                                                     faces, vol, order, labels, mode)
+            check(int(ref.max()) > 0, f"(y) {name} {mode}: empty label volume")
+        N, F = len(dist), len(faces)
+        inputs = r3.kernel_inputs(dist, points, ray_dirs, faces, order, labels, "full")
+        n_vox, window = raster3d_voxels(dist, points, vol, order)
+        b_ms, b_by = raster3d_bound(n_vox, F, N, int(np.prod(vol)))
+        k_ms = cuda_ms(lambda: r3.draw(inputs, vol, F, "full"), warmup=2, iters=10)
+        rows[name] = dict(
+            ms=k_ms, call_ms=cuda_ms(lambda: r3.rasterize_polyhedra_cuda(
+                dist, points, ray_dirs, faces, vol, order, labels), warmup=2, iters=10),
+            plain_ms=plain_s["full"] * 1e3, bound_ms=b_ms, bound_by=b_by, N=N, F=F,
+            window=window, voxels=n_vox, shape=vol, modes=modes, plain_s=plain_s)
+        del model
+        torch.cuda.empty_cache()
+    print("(y) 3D raster kernel on one call's survivors, labels and counts exactly the plain "
+          "twin's (CPU): " + "; ".join(
+              f"{name} {'x'.join(map(str, r['shape']))}: {r['N']} survivors, F = {r['F']}, "
+              f"window {r['window']}, {r['voxels']} voxels tested, modes {'/'.join(r['modes'])}; "
+              f"kernel + memset {r['ms']:.4f} ms, call {r['call_ms']:.4f} ms, twin "
+              + "/".join(f"{s:.2f}" for s in r["plain_s"].values())
+              + f" s; bound {r['bound_ms']:.4f} ms ({r['bound_by']}), kernel + memset at "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound"
+              for name, r in rows.items()), flush=True)
+
+    # seeded polyhedra of 96 anisotropic rays: every mode, with and without the count
+    n, shape = Y_FIELD
+    dirs, faces = raster3d_rays("golden96", dev)
+    dist, points, order, labels = polyhedra_field(dirs, n, shape, dev, seed=5)
+    drawn = {}
+    for mode in ("full", "kernel", "bbox"):
+        for lab in (labels, None):
+            ref, ref_cnt, _ = raster3d_vs_twin("(y) 96-ray field", dist, points, dirs, faces,
+                                               shape, order, lab, mode)
+        drawn[mode] = (int((ref > 0).sum()), int(ref_cnt.max()))
+    print(f"(y) {n} seeded 96-ray polyhedra (F = {len(faces)}) in {'x'.join(map(str, shape))}: "
+          "labels and counts exactly the plain twin's in every mode, with and without labels "
+          "and the count (" + ", ".join(f"{m}: {v} voxels drawn, up to {c} deep"
+                                       for m, (v, c) in drawn.items())
+          + f"); (y) took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=ALL_PHASES,
@@ -3598,7 +3786,7 @@ def main(argv=None):
     from stardist_torch.models import Config2D, Config3D, StarDist2D, StarDist3D
     from stardist_torch.models.unet import StarDistNet
     from stardist_torch.ops import conv, cuda_build, lattice_overlap as lk
-    from stardist_torch.ops import pair_overlap as po, raster_tiles as rt
+    from stardist_torch.ops import pair_overlap as po, raster_polyhedra as r3, raster_tiles as rt
     from stardist_torch.ops.rasterize import rasterize_polygons_splat
 
     torch.backends.cudnn.allow_tf32 = False        # plain convs in full f32
@@ -3611,10 +3799,12 @@ def main(argv=None):
     t0 = time.perf_counter()
     kernels = {"conv": conv.KERNEL, "pair": po.KERNEL, "raster": rt.KERNEL}
     builds = {"conv": conv.KERNEL, "pair": po.KERNEL, "conv3d": conv.KERNEL3D,
-              "raster": rt.KERNEL, "lattice": lk.KERNEL}
+              "raster": rt.KERNEL, "lattice": lk.KERNEL, "raster3d": r3.KERNEL}
     reports = {name: builds[name] for name in ("conv", "conv3d") if phases & set("bf")}
     if "h" in phases:
         reports["lattice"] = lk.KERNEL
+    if "y" in phases:
+        reports["raster3d"] = r3.KERNEL
     jobs = [k.build for k in builds.values()]
     jobs += [lambda k=k: ptxas_report(k, cuda_build) for k in reports.values()]
     with ThreadPoolExecutor(len(jobs)) as pool:        # one nvcc per compile, all at once
@@ -3695,6 +3885,7 @@ def main(argv=None):
         pair_any, counts = phase_x(dev, kernels, conv, po, matching, StarDist2D, StarDist3D,
                                    j_syncs)
         more.append(counts)
+    raster3d = phase_y(dev, r3, StarDist3D) if "y" in phases else None
     if phases != set(ALL_PHASES):
         return 0
     launches["conv3d"] = launches3d
@@ -3735,6 +3926,13 @@ def main(argv=None):
          "max_abs_err": 0.0,
          **{k: lattice[12][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "call_ms")},
          "library_ms": None, "ms_by_s": {str(S): r["ms"] for S, r in lattice.items()}},
+        {"name": "raster_polyhedra_i64", "route": "cuda",
+         "source": "stardist_torch/csrc/raster_polyhedra.cu", "replaces": None,
+         "launches_script": r3.KERNEL.launches, "max_abs_err": 0.0,
+         **{k: raster3d["3D_notebook"][k]
+            for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None,
+         "ms_by_config": {name: r["ms"] for name, r in raster3d.items()}},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -43,13 +43,14 @@ stages but no root:
 - ``stardist.raster`` (``timings_s["raster"]``) with
   ``stardist.raster.draw``, ``.fetch`` (the labels to the host),
   ``.astype`` (2D's int32 copy) and ``.details`` (the survivors to the
-  host); in 3D (``ops/rasterize.py::rasterize_polyhedra``) per chunk of
-  polyhedra, inside ``.draw``, ``stardist.raster.inside`` (the face
-  geometry, the inside test, the in-image mask and the masked selections,
-  whose nonzero is the chunk's sync: its host time holds the device time
-  of the chunk's inside test and whatever of the previous chunk's scatter
-  is still queued) and ``stardist.raster.scatter`` (the scatter-max and
-  the count's scatter-add).
+  host); in 3D (``ops/rasterize.py::rasterize_polyhedra``), inside
+  ``.draw``, ``stardist.raster.inside``: on the card one per call (the
+  face geometry and the one launch of ``csrc/raster_polyhedra.cu``, ended
+  by a sync, so its host time holds the draw's device time); on the CPU
+  one per chunk of polyhedra (the face geometry, the inside test, the
+  in-image mask and the masked selections), each followed by a
+  ``stardist.raster.scatter`` (the scatter-max and the count's
+  scatter-add), which only the CPU's chunks record.
 
 A host sync has no span of its own: the profiler records the CUDA
 runtime's ``cudaStreamSynchronize`` (and device and event syncs), and the

@@ -44,57 +44,21 @@
 // - the test b0 >= lo, b1 >= lo, b2 >= lo, (b0 + b1) + b2 <= hi on a valid
 //   face, with lo and hi the f32 values PyTorch compares an f32 tensor with
 //   when given the Python floats -1e-7 and 1 + 1e-7 (it rounds the scalar to
-//   the tensor's type): f32(-1e-7) and f32(1 + 1e-7) = 1 + 2^-23.
+//   the tensor's type): f32(-1e-7) and f32(1 + 1e-7) = 1 + 2^-23. The test,
+//   the staging of the faces and these constants are barycentric.cuh's,
+//   shared with the 3D raster kernel.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "barycentric.cuh"
 
 namespace {
 
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
-constexpr int ROWS = 3;                          // float4 per staged face
-constexpr int FACE_BYTES = ROWS * 16;
 constexpr int SMEM_MAX = 232448;                 // a block's shared memory on the H100
 constexpr int F_MAX = SMEM_MAX / (WARPS * 2 * FACE_BYTES);
 constexpr int S_MAX = 1290;                      // S^3 lattice points fit an int
-constexpr float LO = -0x1.ad7f2ap-24f;           // f32(-1e-7)
-constexpr float HI = 0x1.000002p+0f;             // f32(1 + 1e-7)
-
-__device__ __forceinline__ float dot(float4 r, float u0, float u1, float u2) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(r.x, u0), __fmul_rn(r.y, u1)), __fmul_rn(r.z, u2));
-}
-
-// u, the point's offset from the centre, inside some valid face's
-// tetrahedron: every face is tested and the verdicts ORed, with no branch
-__device__ __forceinline__ bool inside(const float4* __restrict__ f, int F, float u0,
-                                       float u1, float u2) {
-  bool hit = false;
-#pragma unroll 4
-  for (int k = 0; k < F; ++k) {
-    const float4 r0 = f[ROWS * k], r1 = f[ROWS * k + 1], r2 = f[ROWS * k + 2];
-    const float b0 = dot(r0, u0, u1, u2);
-    const float b1 = dot(r1, u0, u1, u2);
-    const float b2 = dot(r2, u0, u1, u2);
-    hit |= (r0.w != 0.0f) & (b0 >= LO) & (b1 >= LO) & (b2 >= LO) &
-           (__fadd_rn(__fadd_rn(b0, b1), b2) <= HI);
-  }
-  return hit;
-}
-
-// polyhedron n's faces into dst (ROWS float4 a face), by the warp's lanes
-__device__ __forceinline__ void stage(float4* __restrict__ dst, const float* __restrict__ inv,
-                                      const uint8_t* __restrict__ valid, int64_t n, int F,
-                                      int lane) {
-  const float* m = inv + (size_t)n * F * 9;
-  const uint8_t* v = valid + (size_t)n * F;
-  for (int k = lane; k < F; k += 32) {
-    const float* a = m + 9 * k;
-    const float ok = __ldg(v + k) ? 1.0f : 0.0f;
-    dst[ROWS * k] = make_float4(__ldg(a), __ldg(a + 1), __ldg(a + 2), ok);
-    dst[ROWS * k + 1] = make_float4(__ldg(a + 3), __ldg(a + 4), __ldg(a + 5), 0.0f);
-    dst[ROWS * k + 2] = make_float4(__ldg(a + 6), __ldg(a + 7), __ldg(a + 8), 0.0f);
-  }
-}
 
 // lattice points along one axis: the k < S with lo + st * k <= hi
 __device__ __forceinline__ int axis_points(float lo, float st, float hi, int S) {
@@ -118,8 +82,8 @@ lattice_kernel(const float* __restrict__ points, const float* __restrict__ inv,
   for (int p = blockIdx.x * WARPS + warp; p < P; p += gridDim.x * WARPS) {
     const int64_t a = pi[p], b = pj[p];
     __syncwarp();                      // the previous pair's faces are read
-    stage(fa, inv, valid, a, F, lane);
-    stage(fb, inv, valid, b, F, lane);
+    stage(fa, inv, valid, a, F, lane, 32);
+    stage(fb, inv, valid, b, F, lane, 32);
     __syncwarp();
     float lo[3], st[3];
     int n[3];

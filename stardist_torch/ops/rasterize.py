@@ -18,8 +18,14 @@ stretched by ``scale_dist`` per axis about their centres as the reference's
 splat does: the pixel's offset from the centre times ``1 / scale_dist`` is
 tested in the polygon's own frame.
 In 3D the window is a cube and the inside test is the barycentric face test
-of :func:`.polyhedron.points_in_polyhedra` (plain torch on any device), or
-the reference's "kernel" (face half-spaces) or "bbox" test.
+of :func:`.polyhedron.points_in_polyhedra`, or the reference's "kernel"
+(face half-spaces) or "bbox" test. :func:`rasterize_polyhedra` launches
+one kernel per call on CUDA tensors (:mod:`.raster_polyhedra`,
+``csrc/raster_polyhedra.cu``: a block per polyhedron, its faces in shared
+memory, an atomic max of the packed value per voxel) and runs the plain
+version on CPU tensors, in chunks of ``CHUNK_3D`` polyhedra (their voxel
+sets, the inside test in plain torch and a scatter-max per chunk). The two
+agree bit for bit.
 """
 from __future__ import annotations
 
@@ -28,12 +34,12 @@ import torch
 from ..core.profiling import span
 from .polygon import points_in_polygons
 from .polyhedron import _cross, points_in_polyhedra, polyhedron_face_inverses
+from .raster_polyhedra import rasterize_polyhedra_cuda
 from .raster_tiles import inv_scale, rasterize_polygons_tiles_cuda, tile_window, unpack_labels
 
 
 CHUNK = 1024   # polygons per scatter step (bounds the (chunk, window^2) temporaries)
 CHUNK_3D = 8   # polyhedra per scatter step (bounds the (chunk, window^3, 8) temporaries)
-CHUNK_3D_CUDA = 64  # the same on a GPU (fewer, larger launches)
 
 
 def raster_window(dmax, shape, scale_dist=(1, 1)):
@@ -142,10 +148,25 @@ def rasterize_polyhedra(dist, points, ray_dirs, faces, shape, order_values, labe
     the int32 number of drawn polyhedra covering each voxel, else None.
     ``mode`` is the reference's: "full" the exact polyhedron, "kernel" the
     intersection of its faces' inner half-spaces, "bbox" its bounding
-    box."""
+    box.
+
+    CUDA tensors go through one launch of ``csrc/raster_polyhedra.cu``
+    (:func:`.raster_polyhedra.rasterize_polyhedra_cuda`) inside one
+    ``stardist.raster.inside`` span, which ends with a sync, so that its
+    time is the draw's on the card; CPU tensors through the plain version,
+    chunks of ``CHUNK_3D`` polyhedra, each an ``.inside`` and a
+    ``.scatter`` span."""
     if mode not in ("full", "kernel", "bbox"):
         raise ValueError(f"unknown render mode {mode!r}")
     dev = dist.device
+    if dist.is_cuda:
+        with span("stardist.raster.inside"):
+            out = rasterize_polyhedra_cuda(dist, points, ray_dirs, faces, shape, order_values,
+                                           labels, return_count, mode)
+            torch.cuda.synchronize(dev)
+        return out
+    if dev.type != "cpu":
+        raise RuntimeError(f"no raster for device {dev}")
     D, H, W = (int(s) for s in shape)
     N = dist.shape[0]
     img = torch.zeros(D * H * W, dtype=torch.int64, device=dev)
@@ -159,15 +180,10 @@ def rasterize_polyhedra(dist, points, ray_dirs, faces, shape, order_values, labe
     packed = (order_values << 32) | labs
     window = tile_window(dist.max().item(), shape)
     ar = torch.arange(window, dtype=torch.int64, device=dev)
-    chunk = CHUNK_3D_CUDA if dev.type == "cuda" else CHUNK_3D
-    for i0 in range(0, N, chunk):
-        # the chunk syncs in the masked selections at the end (their
-        # nonzero), so this span's host time holds the device time of the
-        # chunk's inside test at F faces and whatever of the previous
-        # chunk's scatter is still queued
+    for i0 in range(0, N, CHUNK_3D):
         with span("stardist.raster.inside"):
-            d = dist[i0:i0 + chunk]
-            p = points[i0:i0 + chunk]
+            d = dist[i0:i0 + CHUNK_3D]
+            p = points[i0:i0 + CHUNK_3D]
             n = d.shape[0]
             start = torch.round(p).to(torch.int64) - window // 2
             zz, yy, xx = (start[:, k:k + 1] + ar[None] for k in range(3))   # (n, Wn)

@@ -14,6 +14,7 @@ from stardist_torch.models import StarDist2D, StarDist3D
 from stardist_torch.ops import conv as tconv
 from stardist_torch.ops import lattice_overlap as tlk
 from stardist_torch.ops import pair_overlap as tpo
+from stardist_torch.ops import raster_polyhedra as tr3
 from stardist_torch.ops import raster_tiles as trt
 from stardist_torch.ops.rasterize import rasterize_polygons
 
@@ -685,6 +686,93 @@ def test_3d_predict_instances_runs_the_lattice_kernel(cuda_device):
     c = det["nms_counters"]
     assert tlk.KERNEL.launches - n0 == c["n_rounds"] > 0
     assert c["n_lattice_points"] > c["n_lattice_inside_first"] > 0
+
+
+@pytest.mark.parametrize("mode", ["full", "kernel", "bbox"])
+def test_raster3d_kernel_matches_plain_on_3d_demo_survivors(cuda_device, mode):
+    """The survivors that a 3D_demo call draws on a seeded volume: the
+    kernel's labels and counts, with and without the count, are those of the
+    plain version on the same tensors moved to the CPU, in every mode."""
+    from chip_smoke import raster3d_args, raster3d_vs_twin
+    img, _ = _nuclei3d((48, 128, 128), 40, 3)
+    gm = StarDist3D(None, "3D_demo", "models/examples", device=cuda_device)
+    args = raster3d_args(gm, img)
+    assert len(args[0]) >= 20
+    want, _, _ = raster3d_vs_twin("3D_demo", *args, mode)
+    assert len(torch.unique(want)) - 1 >= 20
+
+
+@pytest.mark.parametrize("mode", ["full", "kernel", "bbox"])
+@pytest.mark.parametrize("rays", ["golden96", "golden32", "octahedron"])
+def test_raster3d_kernel_matches_plain_on_adversarial_polyhedra(cuda_device, rays, mode):
+    """Seeded polyhedra, overlapping, cut by the volume's edges, with
+    degenerate faces and tied and zero order values (polyhedra_field), with
+    and without labels; on the octahedron with integer centres and dists,
+    faces through voxels."""
+    from chip_smoke import polyhedra_field, raster3d_rays, raster3d_vs_twin
+    dirs, faces = raster3d_rays(rays, cuda_device)
+    shape = (40, 72, 64)
+    dist, points, order, labels = polyhedra_field(dirs, 120, shape, cuda_device, seed=7,
+                                                  integer=rays == "octahedron")
+    for lab in (labels, None):
+        want, want_cnt, _ = raster3d_vs_twin(rays, dist, points, dirs, faces, shape, order, lab,
+                                             mode)
+        assert want.max() > 0 and want_cnt.max() > 1
+
+
+def test_raster3d_kernel_capped_window_empty_and_undrawn(cuda_device):
+    """A polyhedron larger than the volume (the window capped at 2 max(D,
+    H, W) + 4), a call whose every order value is 0, and an empty call: the
+    plain version's images, and no launch without polyhedra."""
+    from chip_smoke import polyhedra_field, raster3d_rays, raster3d_vs_twin
+    dirs, faces = raster3d_rays("golden96", cuda_device)
+    shape = (12, 20, 16)
+    dist, points, order, labels = polyhedra_field(dirs, 10, shape, cuda_device, seed=3)
+    dist[0] = 60.0
+    for mode in ("full", "kernel", "bbox"):
+        for o, drawn in ((order, True), (order * 0, False)):
+            want, _, _ = raster3d_vs_twin("capped", dist, points, dirs, faces, shape, o, labels,
+                                          mode)
+            assert bool(want.any()) == drawn
+    n0 = tr3.KERNEL.launches
+    img, cnt = tr3.rasterize_polyhedra_cuda(dist[:0], points[:0], dirs, faces, shape, order[:0],
+                                            labels[:0], return_count=True)
+    assert tr3.KERNEL.launches == n0
+    assert img.shape == cnt.shape == shape and not img.any() and not cnt.any()
+
+
+def test_raster3d_kernel_makes_no_host_sync(cuda_device):
+    from chip_smoke import polyhedra_field, raster3d_rays
+    dirs, faces = raster3d_rays("golden96", cuda_device)
+    shape = (40, 72, 64)
+    dist, points, order, labels = polyhedra_field(dirs, 60, shape, cuda_device, seed=0)
+    tr3.rasterize_polyhedra_cuda(dist, points, dirs, faces, shape, order, labels)   # builds
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for mode in ("full", "kernel", "bbox"):
+            tr3.rasterize_polyhedra_cuda(dist, points, dirs, faces, shape, order, labels,
+                                         return_count=True, mode=mode)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_3d_predict_instances_draws_with_one_raster3d_launch(cuda_device):
+    """A 3D predict_instances call on the card launches the 3D raster kernel
+    once and records one ``stardist.raster.inside`` span (and no
+    ``.scatter``, the CPU's chunks' span)."""
+    from torch.profiler import ProfilerActivity, profile
+    img, _ = _nuclei3d((32, 96, 96), 12, 3)
+    gm = StarDist3D(None, "3D_demo", "models/examples", device=cuda_device)
+    gm.predict_instances(img)                                                    # builds
+    n0 = tr3.KERNEL.launches
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        lab, _ = gm.predict_instances(img)
+    names = [e.name for e in prof.events()]
+    assert tr3.KERNEL.launches - n0 == 1
+    assert names.count("stardist.raster.inside") == 1
+    assert "stardist.raster.scatter" not in names
+    assert lab.max() > 0
 
 
 @pytest.mark.parametrize("S", [4, 10, 12, 20])

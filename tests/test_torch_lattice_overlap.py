@@ -14,6 +14,7 @@ import torch
 from chip_smoke import (LATTICE_HI, LATTICE_LO, lattice_bound_cases, lattice_pair_set,
                         octahedron_rays)
 from stardist_torch.ops import lattice_overlap as tlk
+from stardist_torch.ops.cuda_build import local_sources
 from stardist_torch.ops import nms as tnms
 from stardist_torch.ops.polyhedron import polyhedron_bboxes, ray_tensors
 from stardist_torch.rays3d import Rays_GoldenSpiral
@@ -151,8 +152,8 @@ def test_lattice_counts_raise_on_a_device_neither_cpu_nor_cuda():
 def test_kernel_constants_are_the_wrappers_and_torchs_bounds():
     """The kernel's limits are the wrapper's checks, and its bounds the f32
     values PyTorch compares an f32 tensor with for the Python floats
-    -1e-7 and 1 + 1e-7."""
-    src = CU.read_text()
+    -1e-7 and 1 + 1e-7 (the kernel's source with the headers it includes)."""
+    src = "".join(path.read_text() for path in local_sources(CU))
 
     def const(name, kind="int"):
         pattern = rf"constexpr {kind} {name} = ([^;]+);"
