@@ -10,6 +10,7 @@ from stardist_tpu.nms import non_maximum_suppression_3d_sparse as nms3d_sparse_j
 from stardist_tpu.ops.nms import nms_polyhedra as nms_polyhedra_jax
 from stardist_tpu.rays3d import Rays_GoldenSpiral
 from stardist_torch.nms import non_maximum_suppression_3d_sparse
+from stardist_torch.ops import nms as ops_nms
 from stardist_torch.ops.nms import nms_polyhedra
 from stardist_torch.ops.polyhedron import ray_tensors
 from tests.utils import synthetic_nuclei_3d
@@ -29,22 +30,55 @@ def candidates():
             jm.rays, jm.thresholds.nms)
 
 
+@pytest.fixture(scope="module")
+def reference_keep(candidates):
+    """The reference's host-path keep flags on ``candidates``."""
+    _, d, p, rays, thresh = candidates
+    return np.asarray(nms_polyhedra_jax(d, p, rays, thresh=thresh, device_nms=False))
+
+
 def _port_keep(d, p, rays, thresh, stats=None):
     dirs, faces = ray_tensors(rays)
     return nms_polyhedra(torch.from_numpy(d), torch.from_numpy(p), dirs, faces,
                          thresh=thresh, stats=stats).numpy()
 
 
-def test_keep_flags_equal_reference_on_model_candidates(candidates):
+def test_keep_flags_equal_reference_on_model_candidates(candidates, reference_keep):
     _, d, p, rays, thresh = candidates
     assert len(d) > 1000                      # real NMS work (2364 candidates)
-    ref = np.asarray(nms_polyhedra_jax(d, p, rays, thresh=thresh, device_nms=False))
     stats = {}
     keep = _port_keep(d, p, rays, thresh, stats)
     # decisions: exactly equal
-    assert np.array_equal(keep, ref)
-    assert stats["n_survivors"] == ref.sum() and stats["n_eval_pairs"] > 0
+    assert np.array_equal(keep, reference_keep)
+    assert stats["n_survivors"] == reference_keep.sum() and stats["n_eval_pairs"] > 0
     assert stats["n_candidates"] == len(d) and stats["exact_s"] > 0
+
+
+@pytest.mark.parametrize("block", [16, 4096])
+def test_keep_flags_do_not_depend_on_the_block_size(candidates, reference_keep, block,
+                                                    monkeypatch):
+    """The keep flags are the greedy's unique fixpoint, so any row block
+    gives the reference's: 16 rows (a block and a pair search for each 16
+    candidates not yet suppressed) and 4096 rows (all 2364 candidates in one block, the pairs searched
+    once, as the 2D NMS does)."""
+    _, d, p, rays, thresh = candidates
+    calls = []
+    search = ops_nms._candidate_pairs
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].shape[0])
+        return search(*args, **kwargs)
+
+    monkeypatch.setattr(ops_nms, "ROW_BLOCK", block)
+    monkeypatch.setattr(ops_nms, "_candidate_pairs", counted)
+    stats = {}
+    keep = _port_keep(d, p, rays, thresh, stats)
+    assert np.array_equal(keep, reference_keep)
+    assert stats["n_survivors"] == reference_keep.sum()
+    if block >= len(d):
+        assert calls == [len(d)]
+    else:
+        assert len(calls) > 1
 
 
 @pytest.mark.parametrize("n", [0, 1, 2, 20, 32])
